@@ -17,10 +17,13 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-if jax.default_backend() == "cpu":
-    jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
+
+from oceananigans_tpu.platform import backend
+
+ON_CPU = backend() == "cpu"
+if ON_CPU:
+    jax.config.update("jax_enable_x64", True)
 
 from oceananigans_tpu.advection import WENO
 from oceananigans_tpu.advection.vector_invariant import WENOVectorInvariant
@@ -40,8 +43,7 @@ def main(N=24, nz=12, hours=24.0, out=None):
 
     grid = ConformalCubedSphereGrid((N, N, nz), z=(-H0, 0.0), radius=R,
                                     halo=4,
-                                    dtype=jnp.float64
-                                    if jax.default_backend() == "cpu"
+                                    dtype=jnp.float64 if ON_CPU
                                     else jnp.float32)
 
     # idealized continent + mid-ocean ridge bathymetry

@@ -1,4 +1,4 @@
-"""oceananigans_tpu — a TPU-native (JAX/XLA/Pallas) rebuild of the
+"""oceananigans_tpu — a JAX/XLA rebuild of the
 capabilities of Oceananigans.jl.
 
 Layer map (mirrors SURVEY.md §1; reference: src/Oceananigans.jl:226-271):

@@ -8,7 +8,7 @@ binary_operations.jl), `Derivative` (derivatives.jl), `@at` relocation
 `Average`/`Integral`/`CumulativeIntegral` (metric_field_reductions.jl:65-206)
 and `Field(op)`+`compute!` materialization (computed_field.jl).
 
-TPU-first: an operation is just a deferred, traceable function of padded
+Design: an operation is just a deferred, traceable function of padded
 arrays — `compute()` evaluates the whole tree as one fused XLA program. The
 layer exists purely for API parity; inside jitted model code you write plain
 jnp expressions."""

@@ -6,17 +6,14 @@ advecting/advected decomposition), upwind_biased_advective_fluxes.jl
 (advecting velocity = scheme's symmetric interpolation of A·q; advected
 quantity = biased reconstruction selected by the advecting velocity's sign).
 
-Vectorized upwinding: on TPU both the left- and right-biased reconstructions
-are computed for all faces and combined with the sign mask
-``q⁺·ψᴸ + q⁻·ψᴿ`` (the vector form of the reference's scalar
-``upwind_biased_product``); there is no divergent control flow on SIMD
-hardware.
+Vectorized upwinding: the upwind reconstruction is selected by the sign of
+the advecting velocity with a mask (the vector form of the reference's
+scalar ``upwind_biased_product``); there is no divergent control flow.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
-import numpy as np
 
 from ..grids.topology import CENTER, FACE
 from ..operators.operators import (LOC_CCC, LOC_CCF, LOC_CFC, LOC_FCC,
@@ -34,100 +31,38 @@ def _biased_by(scheme, grid, a, axis, beta, q, zbc=None):
     return scheme.biased_by(grid, a, axis, beta, q, zbc=zbc)
 
 
-def _trim_metric(m, fn):
-    """Apply a slab trim to a broadcastable metric: no-op for scalars and
-    for axes of extent 1 (the trim slices size-1 dims harmlessly because
-    trims only slice full-extent axes of slab-shaped arrays — but
-    y/z-varying served metrics (kernels/fused_vector_invariant.py) must be
-    windowed alongside the data)."""
-    if np.isscalar(m) or np.ndim(m) == 0:
-        return m
-    return fn(m)
-
-
-def _term_trims(tile, axis):
-    """Window/output trims for one directional flux term when assembling on
-    a halo-extended VMEM slab (kernels/fused_advection.py).
-
-    ``tile = (slice_x, slice_y)`` selects the output tile inside the slab.
-    A term's stencils only shift along its flux axis, so its *transverse*
-    extents can be trimmed to the tile BEFORE the expensive reconstruction
-    (the halo rows there would be dead work); the flux-axis trim must wait
-    until after the delta. Only valid on scalar-metric (regular) grids —
-    the trimmed arrays no longer align with broadcastable metric arrays."""
-    if tile is None:
-        return (lambda a: a), (lambda a: a)
-    sx, sy = tile
-
-    def tx(a):
-        if np.ndim(a) == 3 and a.shape[0] == 1:
-            return a          # broadcast metric: nothing to trim along x
-        return a[sx]
-
-    def ty(a):
-        if np.ndim(a) == 3 and a.shape[1] == 1:
-            return a
-        return a[:, sy]
-
-    if axis == X:
-        return ty, tx
-    if axis == Y:
-        return tx, ty
-    return (lambda a: tx(ty(a))), (lambda a: a)
-
-
 # -- tracer advection ----------------------------------------------------------
 
-def _zeros_tiled(a, tile):
-    if tile is None:
-        return jnp.zeros_like(a)
-    return jnp.zeros_like(a[tile[0], tile[1]])
-
-
-def div_Uc(grid, scheme, u, v, w, c, zbc=None, tile=None, only_axis=None):
+def div_Uc(grid, scheme, u, v, w, c, zbc=None):
     """Tracer advective flux divergence at ccc (reference:
     tracer_advection_operators.jl: div_Uc = V⁻¹[δxᶜ(Ax u ĉ) + …]).
 
-    ``zbc``: halo-free z-boundary mode (kernels/fused_advection.py z-compact
-    path) — the dict gives each variable's z-mirror parity; the flux deltas
-    need no fix-ups because boundary-face fluxes vanish (w = 0 faces) and
-    the out-of-range shift zero-fill reproduces exactly that.
-
-    ``tile``: slab-tile trimming (see _term_trims) — the result is the
-    output tile only; requires scalar metrics."""
+    ``zbc``: halo-free z-boundary mode (the model's z-compact layout) — the
+    dict gives each variable's z-mirror parity; the flux deltas need no
+    fix-ups because boundary-face fluxes vanish (w = 0 faces) and the
+    out-of-range shift zero-fill reproduces exactly that."""
     if scheme is None:
-        return _zeros_tiled(c, tile)
+        return jnp.zeros_like(c)
     if getattr(scheme, "bounds", None) is not None:
-        if zbc is not None or only_axis is not None:
-            # the limiter couples all three directions through θ; silently
-            # returning the full divergence from a per-axis call would
-            # triple-count, and the z-compact path lacks the parity shifts
+        if zbc is not None:
+            # the z-compact path lacks the limiter's parity shifts
             raise NotImplementedError(
                 "bounds-preserving advection is not supported on the "
-                "z-compact / per-axis kernel path")
-        return _div_Uc_bounded(grid, scheme, u, v, w, c, tile=tile)
+                "z-compact layout")
+        return _div_Uc_bounded(grid, scheme, u, v, w, c)
     total = None
     for axis, vel, A in ((X, u, grid.Ax(LOC_FCC)),
                          (Y, v, grid.Ay(LOC_CFC)),
                          (Z, w, grid.Az(LOC_CCF))):
         if grid.is_flat(axis):
             continue
-        if only_axis is not None and axis != only_axis:
-            continue
-        wtrim, otrim = _term_trims(tile, axis)
         kind = zbc["c"] if (zbc is not None and axis == Z) else None
-        velt = wtrim(vel)
-        chat = _biased_by(scheme, grid, wtrim(c), axis, 0, velt, zbc=kind)
-        flux = _trim_metric(A, wtrim) * velt * chat
-        term = otrim(_delta_c(grid, flux, axis))
+        chat = _biased_by(scheme, grid, c, axis, 0, vel, zbc=kind)
+        term = _delta_c(grid, A * vel * chat, axis)
         total = term if total is None else total + term
     if total is None:
-        return _zeros_tiled(c, tile)
-    V = grid.V(LOC_CCC)
-    if tile is not None:
-        wt, _ = _term_trims(tile, Z)
-        V = _trim_metric(V, wt)
-    return total / V
+        return jnp.zeros_like(c)
+    return total / grid.V(LOC_CCC)
 
 
 # Bounds-preserving limiter constants (reference:
@@ -136,7 +71,7 @@ _OMEGA_HAT = 5.0 / 18.0
 _EPS2 = 1e-20
 
 
-def _div_Uc_bounded(grid, scheme, u, v, w, c, tile=None):
+def _div_Uc_bounded(grid, scheme, u, v, w, c):
     """Bounds-preserving WENO tracer flux divergence (reference:
     bounds_preserving_tracer_advection_operators.jl): per cell, a limiter
     factor θ scales the outward face reconstructions back toward the cell
@@ -145,155 +80,128 @@ def _div_Uc_bounded(grid, scheme, u, v, w, c, tile=None):
 
     lo, hi = scheme.bounds
     total = None
-    for axis, vel_full, A in ((X, u, grid.Ax(LOC_FCC)),
-                              (Y, v, grid.Ay(LOC_CFC)),
-                              (Z, w, grid.Az(LOC_CCF))):
+    for axis, vel, A in ((X, u, grid.Ax(LOC_FCC)),
+                         (Y, v, grid.Ay(LOC_CFC)),
+                         (Z, w, grid.Az(LOC_CCF))):
         if grid.is_flat(axis):
             continue
-        # the limiter couples both biased reconstructions with ±1 shifts
-        # along the flux axis only, so the same transverse trimming applies
-        wtrim, otrim = _term_trims(tile, axis)
-        vel = wtrim(vel_full)
-        ct = wtrim(c)
         # biased reconstructions at every face (face i = left face of cell i)
-        cl, cr = scheme.biased_pair(grid, ct, axis, 0)
+        cl, cr = scheme.biased_pair(grid, c, axis, 0)
         # cell i's outward reconstructions: right-biased at its left face,
         # left-biased at its right face (= face i+1)
         c_minus_R = cr
         c_plus_L = shift(cl, +1, axis)
-        p_tilde = (ct - _OMEGA_HAT * c_minus_R - _OMEGA_HAT * c_plus_L) \
+        p_tilde = (c - _OMEGA_HAT * c_minus_R - _OMEGA_HAT * c_plus_L) \
             / (1 - 2 * _OMEGA_HAT)
         M = jnp.maximum(jnp.maximum(p_tilde, c_plus_L), c_minus_R)
         m = jnp.minimum(jnp.minimum(p_tilde, c_plus_L), c_minus_R)
         theta = jnp.minimum(
-            jnp.minimum(jnp.abs((hi - ct) / (M - ct + _EPS2)),
-                        jnp.abs((lo - ct) / (m - ct + _EPS2))),
-            jnp.ones_like(ct))
+            jnp.minimum(jnp.abs((hi - c) / (M - c + _EPS2)),
+                        jnp.abs((lo - c) / (m - c + _EPS2))),
+            jnp.ones_like(c))
         # limited face values: at face i the left-biased value belongs to
         # cell i-1, the right-biased value to cell i
         theta_left = shift(theta, -1, axis)
-        c_left_lim = theta_left * (cl - shift(ct, -1, axis)) \
-            + shift(ct, -1, axis)
-        c_right_lim = theta * (cr - ct) + ct
-        flux = _trim_metric(A, wtrim) * vel * _upwind(vel, c_left_lim,
-                                                      c_right_lim)
-        term = otrim(_delta_c(grid, flux, axis))
+        c_left_lim = theta_left * (cl - shift(c, -1, axis)) \
+            + shift(c, -1, axis)
+        c_right_lim = theta * (cr - c) + c
+        flux = A * vel * _upwind(vel, c_left_lim, c_right_lim)
+        term = _delta_c(grid, flux, axis)
         total = term if total is None else total + term
     if total is None:
-        return _zeros_tiled(c, tile)
-    V = grid.V(LOC_CCC)
-    if tile is not None:
-        wt, _ = _term_trims(tile, Z)
-        V = _trim_metric(V, wt)
-    return total / V
+        return jnp.zeros_like(c)
+    return total / grid.V(LOC_CCC)
 
 
 # -- momentum advection (flux form) --------------------------------------------
 
-def div_Uu(grid, scheme, u, v, w, zbc=None, tile=None, only_axis=None,
-           advected=None):
+def div_Uu(grid, scheme, u, v, w, zbc=None, advected=None):
     """∇·(𝐯 u) at fcc (reference: momentum_advection_operators.jl div_𝐯u).
 
     ``advected``: reconstruct this field instead of ``u`` itself (the
     reference's two-argument div_𝐯u(advection, U, u) form, used by the
     background-field cross terms) — the (u, v, w) args always build the
-    advecting transports.
-
-    ``tile``: slab-tile trimming (see _term_trims) — the advecting velocity
-    is interpolated on the full slab (cheap, and its transverse stencil may
-    need the halo), then everything entering the expensive biased
-    reconstruction is trimmed to the term's window."""
+    advecting transports."""
     if scheme is None:
-        return _zeros_tiled(u, tile)
+        return jnp.zeros_like(u)
     au = u if advected is None else advected
     Ax_u = grid.Ax(LOC_FCC) * u
     Ay_v = grid.Ay(LOC_CFC) * v
     Az_w = grid.Az(LOC_CCF) * w
     terms = []
-    if not grid.is_flat(X) and (only_axis is None or only_axis == X):
-        wtr, otr = _term_trims(tile, X)
-        ut = scheme.symmetric(grid, wtr(Ax_u), X, 1)     # fcc → ccc
-        uhat = _biased_by(scheme, grid, wtr(au), X, 1, ut)
-        terms.append(otr(_delta_f(grid, ut * uhat, X)))  # ccc → fcc
-    if not grid.is_flat(Y) and (only_axis is None or only_axis == Y):
-        wtr, otr = _term_trims(tile, Y)
-        vt = wtr(scheme.symmetric(grid, Ay_v, X, 0))     # cfc → ffc
-        uhat = _biased_by(scheme, grid, wtr(au), Y, 0, vt)
-        terms.append(otr(_delta_c(grid, vt * uhat, Y)))  # ffc → fcc
-    if not grid.is_flat(Z) and (only_axis is None or only_axis == Z):
-        wtr, otr = _term_trims(tile, Z)
-        wt = wtr(scheme.symmetric(grid, Az_w, X, 0))     # ccf → fcf
-        uhat = _biased_by(scheme, grid, wtr(au), Z, 0, wt,
+    if not grid.is_flat(X):
+        ut = scheme.symmetric(grid, Ax_u, X, 1)          # fcc → ccc
+        uhat = _biased_by(scheme, grid, au, X, 1, ut)
+        terms.append(_delta_f(grid, ut * uhat, X))       # ccc → fcc
+    if not grid.is_flat(Y):
+        vt = scheme.symmetric(grid, Ay_v, X, 0)          # cfc → ffc
+        uhat = _biased_by(scheme, grid, au, Y, 0, vt)
+        terms.append(_delta_c(grid, vt * uhat, Y))       # ffc → fcc
+    if not grid.is_flat(Z):
+        wt = scheme.symmetric(grid, Az_w, X, 0)          # ccf → fcf
+        uhat = _biased_by(scheme, grid, au, Z, 0, wt,
                           zbc=zbc["u"] if zbc else None)
-        terms.append(otr(_delta_c(grid, wt * uhat, Z)))  # fcf → fcc
+        terms.append(_delta_c(grid, wt * uhat, Z))       # fcf → fcc
     if not terms:
-        return _zeros_tiled(u, tile)
+        return jnp.zeros_like(u)
     return sum(terms) / grid.V(LOC_FCC)
 
 
-def div_Uv(grid, scheme, u, v, w, zbc=None, tile=None, only_axis=None,
-           advected=None):
+def div_Uv(grid, scheme, u, v, w, zbc=None, advected=None):
     """∇·(𝐯 v) at cfc; ``advected`` as in :func:`div_Uu`."""
     if scheme is None:
-        return _zeros_tiled(v, tile)
+        return jnp.zeros_like(v)
     av = v if advected is None else advected
     Ax_u = grid.Ax(LOC_FCC) * u
     Ay_v = grid.Ay(LOC_CFC) * v
     Az_w = grid.Az(LOC_CCF) * w
     terms = []
-    if not grid.is_flat(X) and (only_axis is None or only_axis == X):
-        wtr, otr = _term_trims(tile, X)
-        ut = wtr(scheme.symmetric(grid, Ax_u, Y, 0))     # fcc → ffc
-        vhat = _biased_by(scheme, grid, wtr(av), X, 0, ut)
-        terms.append(otr(_delta_c(grid, ut * vhat, X)))  # ffc → cfc
-    if not grid.is_flat(Y) and (only_axis is None or only_axis == Y):
-        wtr, otr = _term_trims(tile, Y)
-        vt = scheme.symmetric(grid, wtr(Ay_v), Y, 1)     # cfc → ccc
-        vhat = _biased_by(scheme, grid, wtr(av), Y, 1, vt)
-        terms.append(otr(_delta_f(grid, vt * vhat, Y)))  # ccc → cfc
-    if not grid.is_flat(Z) and (only_axis is None or only_axis == Z):
-        wtr, otr = _term_trims(tile, Z)
-        wt = wtr(scheme.symmetric(grid, Az_w, Y, 0))     # ccf → cff
-        vhat = _biased_by(scheme, grid, wtr(av), Z, 0, wt,
+    if not grid.is_flat(X):
+        ut = scheme.symmetric(grid, Ax_u, Y, 0)          # fcc → ffc
+        vhat = _biased_by(scheme, grid, av, X, 0, ut)
+        terms.append(_delta_c(grid, ut * vhat, X))       # ffc → cfc
+    if not grid.is_flat(Y):
+        vt = scheme.symmetric(grid, Ay_v, Y, 1)          # cfc → ccc
+        vhat = _biased_by(scheme, grid, av, Y, 1, vt)
+        terms.append(_delta_f(grid, vt * vhat, Y))       # ccc → cfc
+    if not grid.is_flat(Z):
+        wt = scheme.symmetric(grid, Az_w, Y, 0)          # ccf → cff
+        vhat = _biased_by(scheme, grid, av, Z, 0, wt,
                           zbc=zbc["v"] if zbc else None)
-        terms.append(otr(_delta_c(grid, wt * vhat, Z)))  # cff → cfc
+        terms.append(_delta_c(grid, wt * vhat, Z))       # cff → cfc
     if not terms:
-        return _zeros_tiled(v, tile)
+        return jnp.zeros_like(v)
     return sum(terms) / grid.V(LOC_CFC)
 
 
-def div_Uw(grid, scheme, u, v, w, zbc=None, tile=None, only_axis=None,
-           advected=None):
+def div_Uw(grid, scheme, u, v, w, zbc=None, advected=None):
     """∇·(𝐯 w) at ccf; ``advected`` as in :func:`div_Uu`."""
     if scheme is None:
-        return _zeros_tiled(w, tile)
+        return jnp.zeros_like(w)
     aw = w if advected is None else advected
     Ax_u = grid.Ax(LOC_FCC) * u
     Ay_v = grid.Ay(LOC_CFC) * v
     Az_w = grid.Az(LOC_CCF) * w
     terms = []
     zw = zbc["w"] if zbc else None
-    if not grid.is_flat(X) and (only_axis is None or only_axis == X):
-        wtr, otr = _term_trims(tile, X)
+    if not grid.is_flat(X):
         # NOTE the advected quantity here is w but the z-INTERPOLATED
         # advecting velocity is u (z-centered, even parity)
-        ut = wtr(scheme.symmetric(grid, Ax_u, Z, 0,
-                                  zbc=zbc["u"] if zbc else None))  # fcc → fcf
-        what = _biased_by(scheme, grid, wtr(aw), X, 0, ut)
-        terms.append(otr(_delta_c(grid, ut * what, X)))  # fcf → ccf
-    if not grid.is_flat(Y) and (only_axis is None or only_axis == Y):
-        wtr, otr = _term_trims(tile, Y)
-        vt = wtr(scheme.symmetric(grid, Ay_v, Z, 0,
-                                  zbc=zbc["v"] if zbc else None))  # cfc → cff
-        what = _biased_by(scheme, grid, wtr(aw), Y, 0, vt)
-        terms.append(otr(_delta_c(grid, vt * what, Y)))  # cff → ccf
-    if not grid.is_flat(Z) and (only_axis is None or only_axis == Z):
-        wtr, otr = _term_trims(tile, Z)
-        wt = scheme.symmetric(grid, wtr(Az_w), Z, 1, zbc=zw)  # ccf → ccc
-        what = _biased_by(scheme, grid, wtr(aw), Z, 1, wt, zbc=zw)
-        terms.append(otr(_delta_f(grid, wt * what, Z)))  # ccc → ccf
+        ut = scheme.symmetric(grid, Ax_u, Z, 0,
+                              zbc=zbc["u"] if zbc else None)  # fcc → fcf
+        what = _biased_by(scheme, grid, aw, X, 0, ut)
+        terms.append(_delta_c(grid, ut * what, X))       # fcf → ccf
+    if not grid.is_flat(Y):
+        vt = scheme.symmetric(grid, Ay_v, Z, 0,
+                              zbc=zbc["v"] if zbc else None)  # cfc → cff
+        what = _biased_by(scheme, grid, aw, Y, 0, vt)
+        terms.append(_delta_c(grid, vt * what, Y))       # cff → ccf
+    if not grid.is_flat(Z):
+        wt = scheme.symmetric(grid, Az_w, Z, 1, zbc=zw)  # ccf → ccc
+        what = _biased_by(scheme, grid, aw, Z, 1, wt, zbc=zw)
+        terms.append(_delta_f(grid, wt * what, Z))       # ccc → ccf
     if not terms:
-        return _zeros_tiled(w, tile)
+        return jnp.zeros_like(w)
     return sum(terms) / grid.V(LOC_CCF)
 
 

@@ -145,7 +145,7 @@ def stencil_value(sc, shifts, coeffs):
 def smoothness_factors(k, s):
     """Factor the PSD smoothness quadratic form B = Σ_m w_m w_mᵀ so that
     β = Σ_m (w_mᵀ u)² — a sum of squared linear stencil combinations, the
-    cheapest VPU evaluation (the classical Jiang–Shu '13/12 (a-2b+c)²' forms
+    cheapest vector evaluation (the classical Jiang–Shu '13/12 (a-2b+c)²' forms
     are exactly such factors)."""
     B = smoothness_matrix(k, s)
     lam, V = np.linalg.eigh(B)
@@ -215,7 +215,7 @@ def eno_coefficients_nonuniform(faces, k, s, beta, npad):
         # strictly increasing edge positions of the union stencil
         edges = [lo[cells[0]]] + [hi[m] for m in cells]
         if np.any(np.diff(edges) <= 0):
-            out[i] = uni     # degenerate (lane-tail) slots: halo-only
+            out[i] = uni     # degenerate slots: halo-only
             continue
         x_eval = faces[min(i, len(faces) - 1)] if beta == 0 \
             else xc_eval[min(i, len(xc_eval) - 1)]

@@ -17,8 +17,8 @@ arrays:
 Like the reference, an upwind/WENO scheme carries a lower-order centered
 scheme for interpolating the *advecting* velocity (reference:
 ``advecting_velocity_scheme``, upwind_biased_reconstruction.jl), and WENO
-computes smoothness indicators in reduced precision by default on TPU
-(FT2=float32 — weno_reconstruction.jl:7-22).
+computes smoothness indicators in float32 by default (the reference's FT2
+low-precision path — weno_reconstruction.jl:7-22).
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ import functools
 
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.pallas import reciprocal as pl_reciprocal
 
 from .reconstruction import (_ShiftCache, eno_coefficients,
                              eno_coefficients_nonuniform, left_shifts, mirror,
@@ -54,8 +53,7 @@ def _padded_faces(grid, axis):
 @functools.lru_cache(maxsize=None)
 def _nonuniform_eno_np(faces_key, nfaces, beta, k, s, mirrored, npad):
     """Cached numeric core of _nonuniform_eno: raw 1D numpy coefficient
-    arrays keyed by the face positions (pure data — no grid objects, so
-    kernel-proxy grids can re-bake without poisoning the cache)."""
+    arrays keyed by the face positions (pure data — no grid objects)."""
     faces = np.frombuffer(faces_key, np.float64).reshape(nfaces)
     if not mirrored:
         return tuple(eno_coefficients_nonuniform(faces, k, s, beta, npad))
@@ -75,21 +73,12 @@ def _nonuniform_eno(grid, axis, beta, k, s, mirrored):
     stretched grid direction (reference: the grid-aware coefficient tables of
     reconstruction_coefficients.jl; here derived exactly from the face
     positions — and, unlike the reference where this is opt-in via
-    WENO(grid=...), applied automatically on stretched axes).
-
-    Grids exposing ``bake_1d`` (the Pallas kernel metric proxy,
-    kernels/fused_vector_invariant.py) intercept the broadcastable baking so
-    coefficient arrays become kernel inputs instead of captured constants."""
+    WENO(grid=...), applied automatically on stretched axes)."""
     from ..grids.base import broadcastable_1d
-    # kernel-slab proxies override padded_shape with the slab geometry; the
-    # coefficient tables need the LOGICAL axis extent
-    npad = getattr(grid, "logical_padded_shape", grid.padded_shape)[axis]
+    npad = grid.padded_shape[axis]
     faces = _padded_faces(grid, axis)
     cs = _nonuniform_eno_np(faces.tobytes(), faces.size, beta, k, s,
                             mirrored, npad)
-    bake = getattr(grid, "bake_1d", None)
-    if bake is not None:
-        return tuple(bake(c, axis) for c in cs)
     return tuple(broadcastable_1d(c, axis) for c in cs)
 
 
@@ -151,8 +140,7 @@ def _immersed_ok(grid, axis, R):
     buffer scheme, recursively down to the 2-point order-1 stencil whose
     reads at a fluid face never touch solid values). True where NO solid
     cell lies within ±R cells along ``axis`` — conservative for both
-    face (β=0) and center (β=1) targets. None on non-immersed grids and
-    kernel-slab proxies (the Pallas paths are immersed-ineligible)."""
+    face (β=0) and center (β=1) targets. None on non-immersed grids."""
     solid = getattr(grid, "solid_ccc", None)
     if solid is None or grid.is_flat(axis):
         return None
@@ -176,27 +164,13 @@ def _cascade_select(grid, axis, beta, R, hi, lo):
     topologically_conditional_interpolation.jl `outside_biased_halo` /
     `outside_symmetric_halo`): with R = the scheme's buffer, high order
     applies at faces i ∈ [R+1, N+1−R] (1-based; face i ↔ padded slot
-    H+i−1) and centers i ∈ [R, N+1−R].
-
-    ``grid.index_offset`` (tile-slab kernels, kernels/fused_*.py): local
-    index + offset = GLOBAL padded index, so the mask stays correct on a
-    tiled axis; the offset may be a traced scalar (program_id·TX)."""
+    H+i−1) and centers i ∈ [R, N+1−R]."""
     from jax import lax
 
     H, N = grid.H[axis], grid.N[axis]
     i0 = H + R - beta
     i1 = H + N - R
-    iota_fn = getattr(grid, "axis_iota", None)
-    if iota_fn is not None:
-        # kernel-slab proxies with non-trivial index geometry (the packed
-        # (y,z)-flattened layout, kernels/fused_vector_invariant.py) serve
-        # GLOBAL padded-index arrays directly
-        iota = iota_fn(hi.shape, axis)
-    else:
-        iota = lax.broadcasted_iota(jnp.int32, hi.shape, axis)
-        off = getattr(grid, "index_offset", None)
-        if off is not None and off[axis] is not None:
-            iota = iota + off[axis]
+    iota = lax.broadcasted_iota(jnp.int32, hi.shape, axis)
     return jnp.where((iota >= i0) & (iota <= i1), hi, lo)
 
 
@@ -295,7 +269,7 @@ class AdvectionScheme:
         right-biased stencils are mirror images sharing the same coefficients
         and smoothness factors, so selecting each cell read first —
         ``where(q > 0, a[shift], a[mirror(shift)])`` — and reconstructing once
-        is exact, at ~half the VPU flops (the TPU replacement for the
+        is exact, at ~half the flops (the vector replacement for the
         reference's scalar branchy `upwind_biased_product`,
         upwind_biased_advective_fluxes.jl)."""
         if grid.is_flat(axis):
@@ -510,24 +484,11 @@ class WENO(AdvectionScheme):
             term = t * b
             tau = term if tau is None else tau + term
         tau = jnp.abs(tau)
-        # Inside Pallas kernel bodies (grid proxies set ``fast_reciprocal``)
-        # the k per-stencil divisions r = τ/(β+ε) use the VPU's approximate
-        # reciprocal (~2⁻¹² relative error) — the same reduced-precision
-        # weight division the reference makes deliberate with
-        # `newton_div(FT2, ...)` (weno_interpolants.jl:290-335); the final
-        # num/den division stays exact.
-        fast_recip = getattr(grid, "fast_reciprocal", False)
         num = None
         den = None
         for s in range(k):
             eps = jnp.asarray(WENO_EPSILON, betas[s].dtype)
-            if fast_recip:
-                # the Mosaic approx-reciprocal lowers for float32 only
-                den_r = (betas[s] + eps).astype(jnp.float32)
-                r = tau.astype(jnp.float32) * pl_reciprocal(den_r,
-                                                            approx=True)
-            else:
-                r = tau / (betas[s] + eps)
+            r = tau / (betas[s] + eps)
             # metric-weighted smoothness operands (δ(A·u) ~ 1e5 on
             # earth-scale grids) give β ~ 1e11, so a perfectly-smooth
             # stencil (β = 0, e.g. the still region beside an immersed

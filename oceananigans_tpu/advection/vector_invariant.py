@@ -145,20 +145,7 @@ class VectorInvariant:
 
     # -- horizontal (vorticity) term ------------------------------------------
 
-    def _tx(self, tile):
-        """x-trim helper for slab-tiled kernel evaluation
-        (kernels/fused_vector_invariant.py): ``tile`` is an x-slice selecting
-        the output rows inside a halo-extended VMEM slab. Terms whose
-        expensive reconstruction runs along y or z trim their inputs to the
-        tile rows first (the x-halo rows there are dead work); x-axis
-        reconstructions trim after. Disabled (identity) when the
-        multi-dimensional tangential filter is on — it couples x back in."""
-        if tile is None or self.multi_dimensional_stencil:
-            return lambda a: a
-        return lambda a: a[tile]
-
-    def _horizontal(self, grid, u, v, tile=None, zeta=None):
-        tx = self._tx(tile)
+    def _horizontal(self, grid, u, v, zeta=None):
         if zeta is None:
             zeta = zeta3_ffc(grid, u, v)
         dx_cfc, dx_fcc = grid.dx(LOC_CFC), grid.dx(LOC_FCC)
@@ -172,36 +159,33 @@ class VectorInvariant:
         if vs == ENSTROPHY:
             adv_u = -iy_c(grid, zeta) * vhat
             adv_v = +ix_c(grid, zeta) * uhat
-            return tx(adv_u), tx(adv_v)
+            return adv_u, adv_v
         if vs == ENERGY:
             adv_u = -iy_c(grid, zeta * ix_f(grid, dx_cfc * v)) / dx_fcc
             adv_v = +ix_c(grid, zeta * iy_f(grid, dy_fcc * u)) / dy_cfc
-            return tx(adv_u), tx(adv_v)
+            return adv_u, adv_v
         # upwinded vorticity (reference: horizontal_advection_U/V for
         # VectorInvariantUpwindVorticity, vector_invariant_advection.jl:377-396)
         if self.vorticity_stencil == VELOCITY_STENCIL and isinstance(vs, WENO):
             smooth = [iy_f(grid, u), ix_f(grid, v)]   # both at ffc
         else:
             smooth = None
-        vhat_t = tx(vhat)
-        smooth_t = None if smooth is None else [tx(s) for s in smooth]
-        adv_u = -vhat_t * self._md(
-            vs.biased_by(grid, tx(zeta), Y, 1, vhat_t, smooth=smooth_t), Y)
+        adv_u = -vhat * self._md(
+            vs.biased_by(grid, zeta, Y, 1, vhat, smooth=smooth), Y)
         adv_v = +uhat * self._md(
             vs.biased_by(grid, zeta, X, 1, uhat, smooth=smooth), X)
-        return adv_u, tx(adv_v)
+        return adv_u, adv_v
 
     # -- Bernoulli head (kinetic-energy gradient) -----------------------------
 
-    def _bernoulli(self, grid, u, v, tile=None):
-        tx = self._tx(tile)
+    def _bernoulli(self, grid, u, v):
         ks = self.kinetic_energy_gradient_scheme
         if not isinstance(ks, AdvectionScheme):
             # energy-conserving: ∂(K)/∂x with K = (ℑx(u²)+ℑy(v²))/2
             # (reference: Khᶜᶜᶜ + bernoulli_head_U/V,
             # vector_invariant_advection.jl:315-319)
             K = 0.5 * (ix_c(grid, u * u) + iy_c(grid, v * v))
-            return tx(ddx(grid, K, LOC_FCC)), tx(ddy(grid, K, LOC_CFC))
+            return ddx(grid, K, LOC_FCC), ddy(grid, K, LOC_CFC)
 
         # self-upwinded KE gradient (vector_invariant_self_upwinding.jl:48-90)
         cross = self.upwinding_cross_scheme
@@ -210,15 +194,15 @@ class VectorInvariant:
         du2y = dy_f(grid, 0.5 * u * u)    # δy_u² at ffc
         dv2x = dx_f(grid, 0.5 * v * v)    # δx_v² at ffc
 
-        dKvs = self._md(_sym(cross, grid, tx(dv2x), Y, 1), Y)   # ffc → fcc
+        dKvs = self._md(_sym(cross, grid, dv2x, Y, 1), Y)   # ffc → fcc
         dKur = self._md(ks.biased_by(grid, du2, X, 0, u,
                                      smooth=[ix_c(grid, u)]), X)
-        bern_u = (tx(dKur) + dKvs) / grid.dx(LOC_FCC)
+        bern_u = (dKur + dKvs) / grid.dx(LOC_FCC)
 
         dKus = self._md(_sym(cross, grid, du2y, X, 1), X)   # ffc → cfc
-        dKvr = self._md(ks.biased_by(grid, tx(dv2), Y, 0, tx(v),
-                                     smooth=[tx(iy_c(grid, v))]), Y)
-        bern_v = (dKvr + tx(dKus)) / grid.dy(LOC_CFC)
+        dKvr = self._md(ks.biased_by(grid, dv2, Y, 0, v,
+                                     smooth=[iy_c(grid, v)]), Y)
+        bern_v = (dKvr + dKus) / grid.dy(LOC_CFC)
         return bern_u, bern_v
 
     @property
@@ -230,14 +214,12 @@ class VectorInvariant:
 
     # -- vertical advection + divergence correction ---------------------------
 
-    def _vertical(self, grid, u, v, w, grid_motion=None, tile=None):
-        tx = self._tx(tile)
+    def _vertical(self, grid, u, v, w, grid_motion=None):
         vas = self.vertical_advection_scheme
         if grid.is_flat(Z):
             if not isinstance(vas, AdvectionScheme):
-                return tx(jnp.zeros_like(u)), tx(jnp.zeros_like(v))
-            adv_u, adv_v = self._divergence_flux(grid, u, v, grid_motion,
-                                                 tile)
+                return jnp.zeros_like(u), jnp.zeros_like(v)
+            adv_u, adv_v = self._divergence_flux(grid, u, v, grid_motion)
             return adv_u / grid.V(LOC_FCC), adv_v / grid.V(LOC_CFC)
 
         Az_w = grid.Az(LOC_CCF) * w
@@ -249,27 +231,26 @@ class VectorInvariant:
                          * ddz(grid, u, LOC_FCF)) / grid.Az(LOC_FCC)
             adv_v = iz_c(grid, iy_f(grid, Az_w)
                          * ddz(grid, v, LOC_CFF)) / grid.Az(LOC_CFC)
-            return tx(adv_u), tx(adv_v)
+            return adv_u, adv_v
 
         # upwind: Φᵟ + δz(Az ŵ û) all divided by V
         # (reference: vertical_advection_U/V, vector_invariant_advection.jl:336-350)
-        phi_u, phi_v = self._divergence_flux(grid, u, v, grid_motion, tile)
-        what_u = tx(_sym(vas, grid, Az_w, X, 0))     # ccf → fcf
-        az_u = dz_c(grid, what_u * vas.biased_by(grid, tx(u), Z, 0, what_u))
-        what_v = _sym(vas, grid, tx(Az_w), Y, 0)     # ccf → cff
-        az_v = dz_c(grid, what_v * vas.biased_by(grid, tx(v), Z, 0, what_v))
+        phi_u, phi_v = self._divergence_flux(grid, u, v, grid_motion)
+        what_u = _sym(vas, grid, Az_w, X, 0)     # ccf → fcf
+        az_u = dz_c(grid, what_u * vas.biased_by(grid, u, Z, 0, what_u))
+        what_v = _sym(vas, grid, Az_w, Y, 0)     # ccf → cff
+        az_v = dz_c(grid, what_v * vas.biased_by(grid, v, Z, 0, what_v))
         return ((phi_u + az_u) / grid.V(LOC_FCC),
                 (phi_v + az_v) / grid.V(LOC_CFC))
 
-    def _divergence_flux(self, grid, u, v, grid_motion=None, tile=None):
+    def _divergence_flux(self, grid, u, v, grid_motion=None):
         """Upwinded horizontal-divergence flux Φᵟ at fcc/cfc (reference:
         upwinded_divergence_flux_U/V in vector_invariant_self_upwinding.jl:20-44
         and vector_invariant_cross_upwinding.jl:36-56). ``grid_motion`` is the
         moving-grid contribution Az·Δr·∂t_σ at ccc (zero on static grids): it
         enters the SYMMETRIC (cross) part of the divergence in self-upwinding
         (δy_V_plus_∂t_σ / δx_U_plus_∂t_σ) and the whole upwinded divergence
-        in cross-upwinding. Results are x-trimmed when ``tile`` is given."""
-        tx = self._tx(tile)
+        in cross-upwinding."""
         ds = self.divergence_scheme
         cross = self.upwinding_cross_scheme
         dU = dx_c(grid, grid.Ax(LOC_FCC) * u)    # δx(Ax u) at ccc
@@ -277,40 +258,39 @@ class VectorInvariant:
         gm = 0.0 if grid_motion is None else grid_motion
         if self.upwinding == CROSS_AND_SELF:
             div = dU + dV + gm
-            phi_u = tx(u * ds.biased_by(grid, div, X, 0, u))
-            phi_v = tx(v) * ds.biased_by(grid, tx(div), Y, 0, tx(v))
+            phi_u = u * ds.biased_by(grid, div, X, 0, u)
+            phi_v = v * ds.biased_by(grid, div, Y, 0, v)
         else:
             div_smooth = [dU + dV]               # divergence_smoothness
             dvs = _sym(cross, grid, dV + gm, X, 0)
-            phi_u = tx(u * self._md(dvs + ds.biased_by(grid, dU, X, 0, u,
-                                                       smooth=div_smooth), X))
-            dus = _sym(cross, grid, tx(dU + gm), Y, 0)
-            phi_v = tx(v) * self._md(
-                dus + ds.biased_by(grid, tx(dV), Y, 0, tx(v),
-                                   smooth=[tx(s) for s in div_smooth]), Y)
+            phi_u = u * self._md(dvs + ds.biased_by(grid, dU, X, 0, u,
+                                                    smooth=div_smooth), X)
+            dus = _sym(cross, grid, dU + gm, Y, 0)
+            phi_v = v * self._md(
+                dus + ds.biased_by(grid, dV, Y, 0, v, smooth=div_smooth), Y)
         return phi_u, phi_v
 
     # -- assembly --------------------------------------------------------------
 
-    def momentum_tendencies(self, grid, u, v, w, grid_motion=None, tile=None,
-                            barriers=True, zeta=None):
+    def momentum_tendencies(self, grid, u, v, w, grid_motion=None,
+                            zeta=None):
         """Return (U·∇u, U·∇v) — the advection contributions to be SUBTRACTED
         from the tendencies (reference: U_dot_∇u/U_dot_∇v,
         vector_invariant_advection.jl:279-285). ``grid_motion`` = Az·Δr·∂t_σ
-        at ccc on moving (z-star) grids. ``tile``/``barriers=False`` are the
-        kernel-slab evaluation mode (kernels/fused_vector_invariant.py).
+        at ccc on moving (z-star) grids.
         ``zeta``: precomputed vertical vorticity at ffc, overriding
         zeta3_ffc — the cubed-sphere model passes the valence-3
         vertex-corrected field (the reference's MultiRegion corner
         treatment)."""
         import jax as _jax
         # barriers split XLA's single giant tendency fusion into per-term
-        # fusions — the monolith spills VMEM registers on TPU (profiled:
-        # two ~12.5 ms fusions at 512x256x32 dominated the hydrostatic step)
-        bar = _jax.lax.optimization_barrier if barriers else (lambda x: x)
-        h_u, h_v = bar(self._horizontal(grid, u, v, tile, zeta=zeta))
-        b_u, b_v = bar(self._bernoulli(grid, u, v, tile))
-        z_u, z_v = bar(self._vertical(grid, u, v, w, grid_motion, tile))
+        # fusions; the monolithic fusion was the slowest part of the
+        # hydrostatic step on the original accelerator. Not yet re-measured
+        # on the GPU.
+        bar = _jax.lax.optimization_barrier
+        h_u, h_v = bar(self._horizontal(grid, u, v, zeta=zeta))
+        b_u, b_v = bar(self._bernoulli(grid, u, v))
+        z_u, z_v = bar(self._vertical(grid, u, v, w, grid_motion))
         return h_u + b_u + z_u, h_v + b_v + z_v
 
 

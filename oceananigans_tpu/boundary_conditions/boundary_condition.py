@@ -6,7 +6,7 @@ boundary_condition.jl (classification + condition), and
 field_boundary_conditions.jl (per-side container + regularization that fills
 topology-appropriate defaults).
 
-TPU-first differences: BCs are static, hashable configuration (they select the
+Design differences: BCs are static, hashable configuration (they select the
 halo-fill code path at trace time); conditions may be
 
 * ``None``      — homogeneous (zero flux / zero value),

@@ -11,7 +11,7 @@ Reference semantics:
 * flux application — compute_flux_bcs.jl (G += q·A/V on west/south/bottom,
   G -= q·A/V on east/north/top)
 
-TPU-first design: one pure function ``a' = fill_halo_regions(a, grid, loc,
+Design: one pure function ``a' = fill_halo_regions(a, grid, loc,
 bcs, t)`` of the full padded array. Every side-fill is a static slice update
 (`.at[].set`), so the whole fill fuses into a handful of XLA dynamic-update
 -slices with no host logic. Halo depth is small and static, so per-slot Python
@@ -76,8 +76,7 @@ def eval_bc(bc, grid, loc, axis, time, dep_values=()):
             mode = ("wrap" if str(grid.topology[ax]) == "periodic"
                     else "edge")
             pad = [(0, 0), (0, 0)]
-            pad[d] = (grid.H[ax],
-                      grid.H[ax] + (grid.lane_tail if ax == 2 else 0))
+            pad[d] = (grid.H[ax], grid.H[ax])
             arr = np.pad(arr, pad, mode=mode)
     return np.expand_dims(arr, axis)
 
@@ -96,10 +95,10 @@ def _polar_row_mean(a, grid, nd, axis, H, N, is_left):
 
 
 def _fill_axis(a, grid, loc, bcs, axis, time, skip_north=False, dt=None):
-    """Build the axis-filled array with ONE jnp.concatenate: slice updates
-    (dynamic-update-slice) each copy the whole array on TPU, so the per-slot
-    `.at[].set` formulation costs as much as the physics; a single fused
-    concat of [left-halo | middle | right-halo] strips is ~20× cheaper."""
+    """Build the axis-filled array with ONE jnp.concatenate of
+    [left-halo | middle | right-halo] strips: XLA fuses it into a single
+    copy, where a chain of per-slot `.at[].set` updates can copy the whole
+    array once per update."""
     H, N = grid.H[axis], grid.N[axis]
     nd = a.ndim
     left_bc, right_bc = bcs.pair(axis)
@@ -111,22 +110,16 @@ def _fill_axis(a, grid, loc, bcs, axis, time, skip_north=False, dt=None):
     def flip(x):
         return jnp.flip(x, axis=axis)
 
-    # lane-tail slots past the right halo (see grids/base.py lane_tail) are
-    # carried through unchanged
-    tail = a.shape[axis] - (N + 2 * H)
-
     def cat(parts):
         return jnp.concatenate(parts, axis=axis)
 
     def cat_full(parts):
-        # full-axis assembly: carry the lane-tail slots through unchanged.
-        # Halo strips computed with float64 metric scalars (grid coordinate
-        # arrays are numpy f64) or f64 user conditions must not promote the
-        # field dtype — cast strips back before the concat.
+        # full-axis assembly. Halo strips computed with float64 metric
+        # scalars (grid coordinate arrays are numpy f64) or f64 user
+        # conditions must not promote the field dtype — cast strips back
+        # before the concat.
         parts = [p.astype(a.dtype) if p.dtype != a.dtype else p
                  for p in parts]
-        if tail > 0:
-            parts = list(parts) + [a[S(slice(N + 2 * H, None))]]
         return jnp.concatenate(parts, axis=axis)
 
     if topo == PERIODIC:
@@ -153,8 +146,7 @@ def _fill_axis(a, grid, loc, bcs, axis, time, skip_north=False, dt=None):
         filled = _fill_axis(a, grid, loc, _SouthOnly(), axis, time,
                             skip_north=False, dt=dt)
         # splice: [south halo + interior) from the BC-honoring fill, the
-        # north boundary face/halo from the zipper exchange; cat_full
-        # re-appends the lane tail from `a`
+        # north boundary face/halo from the zipper exchange
         return cat_full([filled[S(slice(0, H + N))],
                          a[S(slice(H + N, N + 2 * H))]])
 
@@ -304,35 +296,9 @@ def fill_halo_axes(a, grid, loc, bcs, time=0.0, axes=(0, 1, 2), dt=None):
     return a
 
 
-def _pallas_fill_enabled(grid=None):
-    # grids used under a Distributed architecture opt out per-grid (the
-    # Pallas fill doesn't partition under GSPMD); constructing a
-    # Distributed() used to flip a PROCESS-GLOBAL default and silently
-    # disable the fast path for every unrelated model (round-5 review)
-    if grid is not None and getattr(grid, "_pallas_fill_disabled", False):
-        return False
-    from ..defaults import defaults
-    enabled = getattr(defaults, "pallas_fill", None)
-    if enabled is None:
-        import jax
-        return jax.default_backend() not in ("cpu", "gpu")
-    return enabled
-
-
 def fill_halo_regions(a, grid, loc, bcs, time=0.0, dt=None):
     """Refresh all halos of padded array ``a`` (reference:
-    fill_halo_regions!, src/BoundaryConditions/fill_halo_regions.jl:25-41).
-
-    On TPU (lane-aligned layouts, supported BC subset) this dispatches to the
-    in-place Pallas DMA fill (kernels/pallas_fill.py) — strip copies instead
-    of whole-array concats."""
-    if _pallas_fill_enabled(grid):
-        from ..kernels.pallas_fill import get_pallas_fill
-        import jax
-        fast = get_pallas_fill(grid, loc, bcs,
-                               interpret=jax.default_backend() == "cpu")
-        if fast is not None:
-            return fast(a)
+    fill_halo_regions!, src/BoundaryConditions/fill_halo_regions.jl:25-41)."""
     return fill_halo_axes(a, grid, loc, bcs, time, (0, 1, 2), dt=dt)
 
 

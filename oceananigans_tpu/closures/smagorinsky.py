@@ -6,7 +6,7 @@ Smagorinskys/smagorinsky.jl (νₑ = (C Δ)² √(2 ΣᵢⱼΣᵢⱼ) with Δ th
 ς² = max(0, 1 - Ri/Pr) factor under the root), and the `SmagorinskyLilly`
 alias. The eddy diffusivity is κₑ = νₑ/Pr per tracer.
 
-TPU-first: all strain components are interpolated to cell centers and the
+Design: all strain components are interpolated to cell centers and the
 eddy viscosity is ONE ccc array in the aux dict — XLA fuses the whole
 |Σ|-evaluation into the tendency kernel."""
 
@@ -304,7 +304,7 @@ class LagrangianAveraging:
 def _upstream_interp(grid, J, u, v, w, dt):
     """Trilinear interpolation of ``J`` at the upstream point X - U·Δt
     (displacement clamped to one cell, as in the reference) — expressed as
-    shift/where blends per axis: no gathers on TPU."""
+    shift/where blends per axis: no gathers."""
     from ..operators.shifts import shift
     vels = (ix_c(grid, u), iy_c(grid, v), iz_c(grid, w))
     spac = (grid.dx(LOC_CCC), grid.dy(LOC_CCC), grid.dz(LOC_CCC))

@@ -20,17 +20,6 @@ from .defaults import defaults
 from .operators.operators import (ix_c, ix_f, iy_c, iy_f, iz_c, iz_f)
 
 
-def _bake(grid, m):
-    """Route metric-like constant arrays through the grid's ``bake_metric``
-    hook when present (the Pallas kernel metric proxy,
-    kernels/fused_vector_invariant.py) so they become kernel inputs instead
-    of captured constants."""
-    bake = getattr(grid, "bake_metric", None)
-    if bake is not None and not np.isscalar(m):
-        return bake(m)
-    return m
-
-
 def _v_at_fcc(grid, v):
     # (c,f,c) → (f,c,c): interp x to face, y to center
     return ix_f(grid, iy_c(grid, v))
@@ -135,7 +124,7 @@ class BetaPlane:
 
     def _f_at(self, grid, yloc):
         y = grid.coord_padded(1, yloc).reshape(1, -1, 1)
-        return _bake(grid, self.f0 + self.beta * y)
+        return (self.f0 + self.beta * y)
 
     def x_f_cross_U(self, grid, u, v, w):
         return -self._f_at(grid, "c") * _v_at_fcc(grid, v)
@@ -183,12 +172,12 @@ class NonTraditionalBetaPlane:
     def _two_Oy(self, grid, yloc, zloc):
         y = grid.coord_padded(1, yloc).reshape(1, -1, 1)
         z = grid.coord_padded(2, zloc).reshape(1, 1, -1)
-        return _bake(grid, self.fy0 * (1 - z / self.R) + self.gamma * y)
+        return (self.fy0 * (1 - z / self.R) + self.gamma * y)
 
     def _two_Oz(self, grid, yloc, zloc):
         y = grid.coord_padded(1, yloc).reshape(1, -1, 1)
         z = grid.coord_padded(2, zloc).reshape(1, 1, -1)
-        return _bake(grid, self.fz0 * (1 + 2 * z / self.R) + self.beta * y)
+        return (self.fz0 * (1 + 2 * z / self.R) + self.beta * y)
 
     def x_f_cross_U(self, grid, u, v, w):
         # reference: ℑxᶠᵃᵃ(2Ωʸ·ℑz w − 2Ωᶻ·ℑy v) evaluated at ccc first
@@ -234,17 +223,17 @@ class HydrostaticSphericalCoriolis:
 
     def _f(self, grid, yloc):
         phi = grid.coord_padded(1, yloc).reshape(1, -1, 1)
-        return _bake(grid, 2 * self.rotation_rate * np.sin(np.deg2rad(
+        return (2 * self.rotation_rate * np.sin(np.deg2rad(
             np.clip(phi, -90, 90))))
 
     def _f_ffc(self, grid):
         if hasattr(grid, "nodes2d_padded"):
             _, phi = grid.nodes2d_padded(("f", "f"))
-            return _bake(grid, 2 * self.rotation_rate
+            return (2 * self.rotation_rate
                          * np.sin(np.deg2rad(phi))[..., None])
         # 1D-latitude spherical grid: f at the (f,f) node is just f(phi_f)
         phi = grid.coord_padded(1, "f").reshape(1, -1, 1)
-        return _bake(grid, 2 * self.rotation_rate
+        return (2 * self.rotation_rate
                      * np.sin(np.deg2rad(np.clip(phi, -90, 90))))
 
     def x_f_cross_U(self, grid, u, v, w):

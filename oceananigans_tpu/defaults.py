@@ -15,8 +15,9 @@ import jax.numpy as jnp
 
 @dataclasses.dataclass
 class Defaults:
-    # Default element type for grids/fields. float32 is the TPU-native choice;
-    # set to jnp.float64 (with jax_enable_x64) for reference-grade precision.
+    # Default element type for grids/fields. float32 is the fast choice on
+    # accelerators; set to jnp.float64 (with jax_enable_x64) for
+    # reference-grade precision.
     FloatType: type = jnp.float32
 
     # Mean gravitational acceleration at Earth's surface [m/s²]
@@ -28,17 +29,6 @@ class Defaults:
 
     # Earth rotation rate [s⁻¹] (reference: Ω_Earth).
     rotation_rate: float = 7.292115e-5
-
-    # Visible lane-tile (128) padding of the minor (z) array dimension so
-    # Mosaic DMA kernels can address tile-aligned slices. None = auto (on for
-    # TPU backends, off for CPU/GPU); True/False forces it. See
-    # grids/base.py::AbstractGrid.lane_tail.
-    lane_align: bool | None = None
-
-    # In-place Pallas DMA halo fill (kernels/pallas_fill.py). None = auto
-    # (on for TPU backends — requires lane_align layouts); True forces it
-    # (interpret mode on CPU, used by tests); False disables.
-    pallas_fill: bool | None = None
 
 
 defaults = Defaults()

@@ -3,7 +3,7 @@
 Reference semantics: src/Fields/field.jl (Field = grid + offset data + BCs),
 set!.jl (set from number/array/function), and field reductions.
 
-TPU-first design: `Field` is a registered pytree whose only leaf is the padded
+Design: `Field` is a registered pytree whose only leaf is the padded
 jnp data array; grid/location/BCs are static aux data. Models do NOT operate on
 Field objects in the hot path — they carry raw padded arrays in the state
 pytree and reconstruct Fields only at the user-facing API boundary. This keeps

@@ -6,7 +6,7 @@ carrying an optional clock) and src/Fields/constant_field.jl
 (ConstantField/ZeroField/OneField: grid-free uniform fields usable anywhere
 a field is).
 
-TPU-first: with a grid attached these are ordinary :class:`Field` objects
+Design: with a grid attached these are ordinary :class:`Field` objects
 whose padded data is the traced evaluation of the function — XLA folds the
 broadcast into consumers, so laziness buys nothing on-device. Without a grid
 they are lightweight CALLABLE placeholders, accepted everywhere the package

@@ -5,9 +5,9 @@ field between grids that differ in one (or more, by composition) direction,
 conserving the integral: destination cell values are overlap-weighted means
 of source cells.
 
-TPU-native: the 1D conservative remap is a precomputed overlap matrix
+Design: the 1D conservative remap is a precomputed overlap matrix
 W[i_dst, j_src] = |dst_i ∩ src_j| / Δdst_i applied as a matmul along the
-regridded axis (an MXU contraction — the same pattern as the transform
+regridded axis (one contraction — the same pattern as the transform
 solvers), not a scatter loop."""
 
 from __future__ import annotations

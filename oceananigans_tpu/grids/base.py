@@ -1,6 +1,6 @@
 """Abstract grid machinery shared by all grid types.
 
-Design (TPU-first, not a port):
+Design (not a port):
 
 * A grid is a **static, hashable** Python object. It is never traced: passing it
   into a jitted function as a static argument makes XLA specialize the whole
@@ -54,42 +54,9 @@ class AbstractGrid:
         """Interior shape (Nx, Ny, Nz)."""
         return tuple(self.N)
 
-    # TPU lane tiling: f32 arrays are physically stored in (8, 128) tiles, so
-    # a padded minor (z) extent of e.g. 262 already occupies 384 lanes in HBM.
-    # Grids that support it make that padding VISIBLE (lane_tail extra slots,
-    # garbage, appended after the right halo) so that Mosaic DMAs — whose
-    # slice extents must be tile-aligned — can address full-extent slices for
-    # the halo-fill and megakernel paths. Zero physical memory cost.
-    LANE_TILE = 128
-    _supports_lane_tail = False
-
-    @property
-    def lane_tail(self):
-        if not self._supports_lane_tail or self.is_flat(2):
-            return 0
-        from ..defaults import defaults
-        enabled = getattr(defaults, "lane_align", None)
-        if enabled is None:
-            import jax
-            enabled = jax.default_backend() not in ("cpu", "gpu")
-        if not enabled:
-            return 0
-        return (-(self.N[2] + 2 * self.H[2])) % self.LANE_TILE
-
-    def _tailed(self, axis, arr):
-        """Extend a padded 1D coordinate/spacing numpy array along ``axis``
-        with edge values over the lane tail (tail slots are never consumed by
-        stencils; edge values keep metric broadcasts finite)."""
-        t = self.lane_tail if axis == 2 else 0
-        if t == 0:
-            return arr
-        return np.concatenate([arr, np.full(t, arr[-1], arr.dtype)])
-
     @property
     def padded_shape(self):
-        s = [n + 2 * h for n, h in zip(self.N, self.H)]
-        s[2] += self.lane_tail
-        return tuple(s)
+        return tuple(n + 2 * h for n, h in zip(self.N, self.H))
 
     @property
     def interior_slices(self):

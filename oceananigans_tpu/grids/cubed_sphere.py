@@ -26,7 +26,7 @@ via the external CubedSphere.jl coefficient tables. Here:
   tracer-only work). Single panels (`ConformalCubedSpherePanel`) use the
   equiangular map (the FV3/MITgcm-standard variant).
 
-TPU-first composition: a cubed-sphere field is ONE array with a leading panel
+Composition: a cubed-sphere field is ONE array with a leading panel
 axis (6, npx, npy, npz) — the panel axis is shardable across devices, and the
 inter-panel halo exchange is a static gather (panel, index-slice, optional
 reversal) derived NUMERICALLY from the panel corner geometry at construction
@@ -616,8 +616,8 @@ def build_concat_exchange(csgrid):
     along y. Reads, sign flips and the S/N-overwrite-corners order are
     identical to fill_cubed_sphere_halos / fill_cubed_sphere_velocity_halos,
     so results are bitwise-equal (tested) — but a pass is ~10 kernels
-    instead of ~50 full-array dynamic-update-slices, which matters on
-    dispatch-bound TPU steps (each DUS rewrites the whole buffer)."""
+    instead of ~50 full-array dynamic-update-slices (each of which can
+    rewrite the whole buffer)."""
     grid = csgrid.panel_grids[0]
     H, N = csgrid.H[0], csgrid.N[0]
     NP = N + 2 * H
@@ -906,36 +906,25 @@ def build_fast_exchange(csgrid):
 def fast_exchange(csgrid):
     """Cached (exchange_c, exchange_uv) for ``csgrid``.
 
-    Backend-gated (all three variants bitwise-equal, selection measured on
-    v5e vs CPU):
-    * CPU → "gather" (build_fast_exchange): the single-gather maps shrink
-      the XLA graph enormously (CS test wall time 900 → 221 s; remote
-      compiles from tens of minutes to ~1 min);
-    * TPU → "concat" (build_concat_exchange): concat-assembled side-class
-      strips — ~10 kernels per pass vs ~50 full-array update-slices of the
-      slice chain (11.6 → 5.5 ms/step at 6×64×64×32) and vs the gather
-      maps whose irregular row-gathers lower slowly on TPU (21.8 ms/step);
+    Three variants, all bitwise equal; ``platform.cubed_sphere_exchange``
+    picks one:
+    * "gather" (build_fast_exchange): single-gather maps that shrink the
+      XLA graph, and so the compile time, enormously;
+    * "concat" (build_concat_exchange): concat-assembled side-class strips,
+      about ten fused copies per pass instead of about fifty full-array
+      update-slices of the slice chain and without irregular row gathers;
     * "slice": the reference-shaped per-panel slice-copy chain, kept as
-      the semantic baseline the others are probed/tested against.
-    Override with CS_EXCHANGE=slice|gather|concat."""
+      the semantic baseline the others are tested against."""
     cached = getattr(csgrid, "_fast_exchange_sel", None)
     if cached is not None:
         return cached
-    import os
-
-    import jax
-    env = os.environ.get("CS_EXCHANGE")
-    if env is None:
-        legacy = os.environ.get("CS_FAST_EXCHANGE")
-        if legacy in ("0", "1"):
-            env = "gather" if legacy == "1" else "slice"
-    if env is None:
-        env = "gather" if jax.default_backend() == "cpu" else "concat"
-    if env == "gather":
+    from ..platform import cubed_sphere_exchange
+    kind = cubed_sphere_exchange()
+    if kind == "gather":
         cached = build_fast_exchange(csgrid)
-    elif env == "concat":
+    elif kind == "concat":
         cached = build_concat_exchange(csgrid)
-    elif env == "slice":
+    else:
         def exchange_c(a):
             return fill_cubed_sphere_halos(a, csgrid)
 
@@ -944,9 +933,6 @@ def fast_exchange(csgrid):
             return fill_cubed_sphere_velocity_halos(u, v, csgrid)
 
         cached = (exchange_c, exchange_uv)
-    else:
-        raise ValueError(f"CS_EXCHANGE must be slice|gather|concat, "
-                         f"got {env!r}")
     csgrid._fast_exchange_sel = cached
     return cached
 
@@ -954,8 +940,8 @@ def fast_exchange(csgrid):
 # -- panel-batched (concatenated) grid ------------------------------------------
 #
 # The 6-panel tendency assembly used to run the shared physics per panel in a
-# Python loop: six copies of every kernel over (npx, npy, npz) arrays. TPU
-# kernels that small are launch-bound, and six structurally-identical XLA
+# Python loop: six copies of every kernel over (npx, npy, npz) arrays.
+# Kernels that small are launch-bound, and six structurally-identical XLA
 # subgraphs (differing only in baked metric constants) sextuple the program.
 # ConcatPanelsGrid presents the six panels as ONE grid whose metric tables are
 # concatenated along x — a (6, npx, npy, npz) stacked field reshapes (for
@@ -1023,10 +1009,6 @@ class ConcatPanelsGrid:
     def padded_shape(self):
         s = self._panels[0].padded_shape
         return (6 * s[0], s[1], s[2])
-
-    @property
-    def lane_tail(self):
-        return self._panels[0].lane_tail
 
     @property
     def interior_slices(self):

@@ -9,9 +9,9 @@ src/Operators/spacings_and_areas_and_volumes.jl:
     Az               = R² Δλ (sin φ⁺ - sin φ⁻)   (exact cell area)
 
 Longitude λ and latitude φ are in degrees, z in meters. The reference offers
-precomputed or on-the-fly metrics; on TPU the metrics are numpy constants
+precomputed or on-the-fly metrics; here the metrics are numpy constants
 baked into the compiled program (1D/2D broadcastable arrays — tiny next to
-the HBM-resident state)."""
+the device-resident state)."""
 
 from __future__ import annotations
 

@@ -429,8 +429,8 @@ def rotation_angle_ccc(grid):
     north = np.cross(Pc, east)
     cos = np.sum(ex * east, axis=-1)
     sin = np.sum(ex * north, axis=-1)
-    # pad to the grid's full padded horizontal extent (halo + any TPU
-    # lane-tail alignment rows land on the high side)
+    # pad to the grid's full padded horizontal extent (any rows beyond
+    # the halo land on the high side)
     ps = grid.padded_shape
     pad = [(grid.H[a], ps[a] - cos.shape[a] - grid.H[a]) for a in (0, 1)]
     cos = np.pad(cos, pad, mode="edge")[..., None]

@@ -117,8 +117,6 @@ class _Coordinate:
 
 
 class RectilinearGrid(AbstractGrid):
-    _supports_lane_tail = True
-
     def __init__(self, size=None, extent=None, x=None, y=None, z=None,
                  topology=None, halo=None, dtype=None):
         if topology is None:
@@ -214,7 +212,7 @@ class RectilinearGrid(AbstractGrid):
         s = c.spacing(loc[axis])
         if np.isscalar(s):
             return s
-        return broadcastable_1d(self._tailed(axis, s), axis)
+        return broadcastable_1d(s, axis)
 
     def dx(self, loc):
         return self._spacing(0, loc)
@@ -229,8 +227,8 @@ class RectilinearGrid(AbstractGrid):
 
     def coord_padded(self, axis, loc):
         """Padded 1D coordinate array along ``axis`` at location ``loc``
-        ('c'/'f'), extended over the lane tail with edge values."""
-        return self._tailed(axis, self._coords[axis].coord(loc))
+        ('c'/'f')."""
+        return self._coords[axis].coord(loc)
 
     def nodes1d(self, axis, loc):
         """Interior coordinates along ``axis``: N values at centers, N+1 at

@@ -17,9 +17,8 @@ PERIODIC = "periodic"
 BOUNDED = "bounded"
 FLAT = "flat"
 # Distributed-local topologies (reference: FullyConnected / LeftConnected /
-# RightConnected, src/Grids/Grids.jl). In the TPU rebuild we use global-view
-# sharded arrays, so these only appear on per-shard *local* grids used inside
-# shard_map halo exchange.
+# RightConnected, src/Grids/Grids.jl). In this rebuild we use global-view
+# sharded arrays, so these only appear on per-shard *local* grids.
 FULLY_CONNECTED = "fully_connected"
 
 TOPOLOGIES = (PERIODIC, BOUNDED, FLAT, FULLY_CONNECTED)

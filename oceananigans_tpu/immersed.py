@@ -11,10 +11,11 @@ Reference semantics: src/ImmersedBoundaries/ —
   after each step; conditional fluxes zero transport through immersed faces
   (conditional_differences.jl).
 
-TPU-first: the immersed geometry is a set of STATIC numpy masks baked into
+Design: the immersed geometry is a set of STATIC numpy masks baked into
 the compiled step as constants — `where`-selects fuse into the stencil
 kernels for free (branchless SIMD; the reference's active-cells-map gather
-strategy trades badly on TPU where dense masked arithmetic is cheaper than
+strategy trades badly on SIMD hardware where dense masked arithmetic is
+cheaper than
 irregular gathers — SURVEY.md §7 note)."""
 
 from __future__ import annotations
@@ -227,14 +228,6 @@ class ImmersedBoundaryGrid(AbstractGrid):
     @property
     def underlying_grid(self):
         return self._underlying
-
-    @property
-    def lane_tail(self):
-        # properties bypass __getattr__ delegation: without this override the
-        # AbstractGrid default (_supports_lane_tail = False) would make the
-        # immersed grid report an untailed padded_shape while its masks and
-        # the underlying metrics are built lane-tailed (TPU layout mismatch)
-        return self._underlying.lane_tail
 
     def fluid_mask(self, loc, dtype=None):
         m = self.mask.get(tuple(loc), ~self.solid_ccc)

@@ -7,7 +7,7 @@ free-surface capability set, per region with connectivity-driven halo
 exchange; src/MultiRegion/cubed_sphere_boundary_conditions.jl;
 multi_region_split_explicit_free_surface.jl).
 
-TPU-native composition: ONE stacked (6, NP, NP, ZP) array per field, panels
+Composition: ONE stacked (6, NP, NP, ZP) array per field, panels
 unrolled inside a single jitted step, static-gather inter-panel exchanges
 between stages (grids/cubed_sphere.py). The physics per panel is the SAME
 code path as the rectilinear/lat-lon model: each panel gets a
@@ -172,7 +172,6 @@ class _PanelPhysics:
         self.grid = grid                      # panel OSSG or ImmersedBoundaryGrid
         self.bcs = bcs
         self.vertical_coordinate = parent.vertical_coordinate
-        self._fused_vi = None
         self._zeta_override = None            # set per tendency call
         self.momentum_advection = parent.momentum_advection
         self.tracer_advection = parent.tracer_advection
@@ -1670,22 +1669,27 @@ class CubedSphereHydrostaticModel:
         reads across the exchange and produces ~1%-wrong interior
         tendencies on the CPU backend (jax 0.8, 6-way panel sharding), and
         per-panel is collective-free under panel sharding anyway. The flag
-        is applied around each call (tracing happens on first call)."""
+        is applied around each call and each ``.lower`` (tracing happens on
+        first call)."""
         key = (bool(use_batch), (len(se[1]), se[0]) if se else None, M)
         hit = self._se_step_cache.get(key)
         if hit is None:
             inner = jax.jit(self._build_step(se_settings=se,
                                              catke_substeps=M))
 
-            def run(state, dt, _inner=inner, _b=key[0]):
-                prev = self._batch
-                self._batch = _b
-                try:
-                    return _inner(state, dt)
-                finally:
-                    self._batch = prev
+            def with_flag(fn, _b=key[0]):
+                def call(state, dt):
+                    prev = self._batch
+                    self._batch = _b
+                    try:
+                        return fn(state, dt)
+                    finally:
+                        self._batch = prev
+                return call
 
-            hit = self._se_step_cache[key] = run
+            hit = with_flag(inner)
+            hit.lower = with_flag(inner.lower)
+            self._se_step_cache[key] = hit
         return hit
 
     def _step_for(self, dt):

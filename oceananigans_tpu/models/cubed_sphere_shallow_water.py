@@ -4,7 +4,7 @@ Reference analogue: the MultiRegion cubed-sphere model support
 (src/MultiRegion/cubed_sphere_grid.jl + multi_region_models.jl) with the
 ShallowWaterModel (src/Models/ShallowWaterModels/shallow_water_model.jl) —
 the reference runs its models on cubed-sphere grids through per-region
-kernel launches and connectivity-driven halo exchange. Here the TPU-native
+kernel launches and connectivity-driven halo exchange. Here the
 composition is ONE stacked (6, npx, npy, 1) array per field, panels unrolled
 inside a single jitted step, with the static-gather inter-panel exchanges
 (grids/cubed_sphere.py) between stages.

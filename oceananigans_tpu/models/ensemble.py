@@ -4,7 +4,7 @@ ensemble axis.
 Reference semantics: src/Models/HydrostaticFreeSurfaceModels/
 slice_ensemble_model_mode.jl + single_column_model_mode.jl — the reference
 fakes an ensemble by abusing grid dimensions (an "ensemble axis" replaces x);
-the TPU-native mechanism is `jax.vmap` of the SAME jitted step over stacked
+the mechanism is `jax.vmap` of the SAME jitted step over stacked
 states (SURVEY.md §5: "ensemble axes via SliceEnsembleMode — the DP analogue
 for parameter-calibration ensembles"). The ensemble axis is also shardable
 over a device mesh for embarrassingly-parallel calibration sweeps."""

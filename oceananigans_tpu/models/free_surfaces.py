@@ -16,7 +16,7 @@ Reference semantics: src/Models/HydrostaticFreeSurfaceModels/ —
   forcing Gᵁ = ∫ G_u dz, and the barotropic corrector replacing the depth
   mean of u with the filtered Ū (barotropic_split_explicit_corrector.jl).
 
-TPU-first: the substep loop is a `lax.scan` over a stacked weights array —
+Design: the substep loop is a `lax.scan` over a stacked weights array —
 two tiny fused 2D kernels per substep with no host round trips (the
 reference hand-unrolls and pre-converts kernel arguments for the same reason,
 step_split_explicit_free_surface.jl:65-107)."""
@@ -225,7 +225,7 @@ class SplitExplicitFreeSurface:
         a fresh fill stays valid for ⌊H/2⌋ substeps — the whole-array
         analogue of the reference's halo extension trick
         (maybe_extend_halos, split_explicit_free_surface.jl:300-330), and
-        the main latency lever of the 2D loop on TPU.
+        the main latency lever of the 2D loop.
 
         Returns (eta_filtered, U_filtered, V_filtered)."""
         g = self.g

@@ -12,9 +12,9 @@ Reference semantics: src/Models/HydrostaticFreeSurfaceModels/ —
   u, v, tracers + implicit vertical diffusion + free-surface step + barotropic
   corrector.
 
-TPU-first: one jitted step; the split-explicit barotropic loop is a lax.scan
+Design: one jitted step; the split-explicit barotropic loop is a lax.scan
 (models/free_surfaces.py); the hydrostatic pressure integral and w-from-
-continuity are cumulative sums along the z (lane) axis — XLA lowers them to
+continuity are cumulative sums along the z (minor) axis — XLA lowers them to
 efficient scans. The barotropic transports are re-initialized from ∫u dz each
 step (the reference persists them across steps; the filtered average is
 insensitive to this at O(Δt) — documented deviation)."""
@@ -154,7 +154,7 @@ class HydrostaticFreeSurfaceModel:
                  closure=None, forcing=None, boundary_conditions=None,
                  velocities=None, timestepper="QuasiAdamsBashforth2",
                  vertical_coordinate="z", reference_datetime=None,
-                 biogeochemistry=None, auxiliary_fields=None, **legacy_kw):
+                 biogeochemistry=None, auxiliary_fields=None):
         self.reference_datetime = reference_datetime
         if callable(vertical_coordinate):
             vertical_coordinate = vertical_coordinate()
@@ -247,11 +247,6 @@ class HydrostaticFreeSurfaceModel:
             required = max(required, getattr(closure, "required_halo", 1))
         halo = [max(h, required) if not grid.is_flat(i) else 0
                 for i, h in enumerate(grid.H)]
-        if not grid.is_flat(1) and hasattr(grid, "with_halo"):
-            # Mosaic tile alignment so the Pallas halo-fill fast path engages
-            # (kernels/pallas_fill.py): Hy a multiple of 8
-            while halo[1] % 8:
-                halo[1] += 1
         halo = tuple(halo)
         self.grid = grid.with_halo(halo)
         if not self.grid.is_bounded(2):
@@ -357,70 +352,6 @@ class HydrostaticFreeSurfaceModel:
             self._zstar_geo = zstar_column_geometry(
                 self.grid, dtype, self._H_fc, self._H_cf, self._immersed)
 
-        # Pallas fused-VI tendency megakernel (x-tiled full-y/z slabs,
-        # kernels/fused_vector_invariant.py): VI momentum + Coriolis + ∂pHY′
-        # + tracer advection in one kernel; closures/forcing/flux BCs are
-        # added on top in XLA. Deleted in round 3 after measuring a loss at
-        # Nz=32 (54.6 ms vs ~35 ms XLA at 512x256x32), RESURRECTED in round
-        # 5 to settle the Nz=64/128 question the round-4 verdict raised
-        # (the Nz=32 loss was established under the since-refuted lane-tax
-        # model; fixed slab costs amortize differently at depth). Opt-in:
-        # fused_tendencies=True or "packed"; "auto"/absent = XLA path.
-        fused_tendencies = legacy_kw.pop("fused_tendencies", "auto")
-        if legacy_kw:
-            raise TypeError(f"unknown kwargs: {sorted(legacy_kw)}")
-        self._fused_vi = None
-        if fused_tendencies in (True, "packed"):
-            # explicit opt-in must not silently fall back to the XLA path:
-            # fail loudly on configurations the kernel family doesn't cover
-            unsupported = []
-            if self.prescribed_velocities is not None:
-                unsupported.append("prescribed velocities")
-            if vertical_coordinate != "z":
-                unsupported.append("z* moving coordinate")
-            if self._immersed:
-                unsupported.append("immersed boundaries")
-            if getattr(closure, "has_eddy_velocities", False):
-                unsupported.append("eddy-velocity (advective GM) closures")
-            if not isinstance(self.momentum_advection, VectorInvariant):
-                unsupported.append("non-vector-invariant momentum advection")
-            if unsupported:
-                raise ValueError(
-                    "fused_tendencies is not supported with: "
-                    + ", ".join(unsupported))
-        if fused_tendencies in (True, "packed"):
-            if self._tracer_advection_map is not None:
-                raise ValueError("fused_tendencies does not support "
-                                 "per-tracer advection schemes")
-            from ..kernels.fused_vector_invariant import (
-                build_fused_hydrostatic_tendency,
-                build_fused_hydrostatic_tendency_packed,
-                eligible_hydrostatic, eligible_hydrostatic_packed)
-            if fused_tendencies == "packed":
-                # packed (y,z)-flattened slabs: no 128-lane z padding — the
-                # fast path at hydrostatic depths (Nz ≪ 128)
-                if eligible_hydrostatic_packed(
-                        self.grid, self.momentum_advection,
-                        self.tracer_advection, self.tracer_names):
-                    self._fused_vi = build_fused_hydrostatic_tendency_packed(
-                        self.grid, self.momentum_advection,
-                        self.tracer_advection, self.tracer_names,
-                        coriolis=self.coriolis,
-                        with_ph=(self.buoyancy is not None))
-                else:
-                    raise ValueError("grid/config not eligible for the "
-                                     "packed fused VI tendency kernel")
-            elif eligible_hydrostatic(self.grid, self.momentum_advection,
-                                      self.tracer_advection,
-                                      self.tracer_names):
-                self._fused_vi = build_fused_hydrostatic_tendency(
-                    self.grid, self.momentum_advection, self.tracer_advection,
-                    self.tracer_names, coriolis=self.coriolis,
-                    with_ph=(self.buoyancy is not None))
-            elif fused_tendencies is True:
-                raise ValueError("grid/config not eligible for the fused "
-                                 "VI tendency kernel")
-
         # implicit free-surface solver selection (reference:
         # implicit_free_surface.jl:35-110 — :Default picks FFT on
         # horizontally-regular rectilinear grids with constant depth, else
@@ -440,7 +371,7 @@ class HydrostaticFreeSurfaceModel:
                 # reference: matrix_implicit_free_surface_solver.jl assembles
                 # the same 2D vertically-integrated Helmholtz operator as a
                 # sparse heptadiagonal matrix for Krylov iteration. Sparse
-                # assembly defeats XLA fusion on TPU; the matrix-free CG
+                # assembly defeats XLA fusion; the matrix-free CG
                 # applies the identical operator, so the method name maps
                 # onto it (same operator, same Krylov family, no matrix).
                 method = "PreconditionedConjugateGradient"
@@ -793,11 +724,11 @@ class HydrostaticFreeSurfaceModel:
         return out
 
     def _cum_matmul(self, d, tri):
-        """z-scan as a triangular matmul: XLA lowers lane-axis cumsums to
-        O(Nz) shifted adds on the VPU (measured 7.3 ms at 512x256x32); a
-        (Nz, Nz) triangular matrix contraction runs on the MXU in one pass.
-        precision=HIGHEST keeps f32-exact accumulation (bf16 passes would
-        lose the small-increment sums)."""
+        """z-scan as one (Nz, Nz) triangular matrix contraction instead of
+        O(Nz) shifted adds (chosen on the original accelerator; not yet
+        re-measured on the GPU). precision=HIGHEST keeps f32-exact
+        accumulation (TF32 or bf16 passes would lose the small-increment
+        sums)."""
         return jax.lax.dot_general(
             d, jnp.asarray(tri, d.dtype), (((2,), (0,)), ((), ())),
             precision=jax.lax.Precision.HIGHEST)
@@ -852,7 +783,7 @@ class HydrostaticFreeSurfaceModel:
         b_int = b[sx, sy, h:h + n]
         # p[k] = -(b[k] dz[k]/2 + Σ_{k'>k} b[k'] dz[k'])  (centered integral)
         bdz = b_int * jnp.asarray(dzc, b.dtype)
-        # one MXU triangular contraction (see _cum_matmul):
+        # one triangular contraction (see _cum_matmul):
         # M[k', k] = 1/2 at k'=k, 1 for k'>k
         if not hasattr(self, "_ph_tri"):
             self._ph_tri = (np.tril(np.ones((n, n), np.float64), -1)
@@ -955,13 +886,8 @@ class HydrostaticFreeSurfaceModel:
         grid = self._moving_grid(fields)
         u, v = fields["u"], fields["v"]
         G = {}
-        Gc_fused = None
 
-        if self._fused_vi is not None and dt_sigma is None:
-            ph = self._hydrostatic_pressure(fields, time)
-            G["u"], G["v"], Gc_fused = self._fused_vi(
-                u, v, w, {n: fields[n] for n in self.tracer_names}, ph)
-        elif isinstance(self.momentum_advection, VectorInvariant):
+        if isinstance(self.momentum_advection, VectorInvariant):
             gm = None
             if dt_sigma is not None:
                 # Az·Δr·∂t_σ at ccc (Δr = the static reference spacing)
@@ -979,18 +905,17 @@ class HydrostaticFreeSurfaceModel:
         else:
             adv_u = div_Uu(grid, self.momentum_advection, u, v, w)
             adv_v = div_Uv(grid, self.momentum_advection, u, v, w)
-        if Gc_fused is None:
-            G["u"] = -adv_u
-            G["v"] = -adv_v
+        G["u"] = -adv_u
+        G["v"] = -adv_v
 
-            if self.coriolis is not None:
-                G["u"] = G["u"] - self.coriolis.x_f_cross_U(grid, u, v, w)
-                G["v"] = G["v"] - self.coriolis.y_f_cross_U(grid, u, v, w)
+        if self.coriolis is not None:
+            G["u"] = G["u"] - self.coriolis.x_f_cross_U(grid, u, v, w)
+            G["v"] = G["v"] - self.coriolis.y_f_cross_U(grid, u, v, w)
 
-            ph = self._hydrostatic_pressure(fields, time)
-            if ph is not None:
-                G["u"] = G["u"] - ddx(grid, ph, LOC_FCC)
-                G["v"] = G["v"] - ddy(grid, ph, LOC_CFC)
+        ph = self._hydrostatic_pressure(fields, time)
+        if ph is not None:
+            G["u"] = G["u"] - ddx(grid, ph, LOC_FCC)
+            G["v"] = G["v"] - ddy(grid, ph, LOC_CFC)
 
         if isinstance(self.free_surface, ExplicitFreeSurface):
             g = self.free_surface.g
@@ -1018,9 +943,8 @@ class HydrostaticFreeSurfaceModel:
             ut, vt, wt = u + ue, v + ve, w + we
 
         for name in self.tracer_names:
-            Gc = (Gc_fused[name] if Gc_fused is not None else
-                  -div_Uc(grid, self.tracer_scheme(name), ut, vt, wt,
-                          fields[name]))
+            Gc = -div_Uc(grid, self.tracer_scheme(name), ut, vt, wt,
+                         fields[name])
             if self.closure is not None:
                 cf = dict(fields)
                 cf["w"] = w

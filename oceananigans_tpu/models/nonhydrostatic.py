@@ -11,7 +11,7 @@ Reference semantics: src/Models/NonhydrostaticModels/ —
   solve ∇²p = ∇·u*/Δt, then u ← u* - Δt ∇p
 * RK3 / quasi-AB2 stepping (src/TimeSteppers/) with per-substep projection.
 
-TPU-first design: the model state is an immutable pytree of padded arrays
+Design: the model state is an immutable pytree of padded arrays
 ({u, v, w, tracers…, clock}); ALL configuration (grid, schemes, physics) is
 closed over by ONE jitted ``step(state, dt)`` built at construction. There is
 no mutable Clock, no per-side kernel launches, no host logic in the hot loop —
@@ -20,8 +20,6 @@ XLA program. G⁻ storage only exists for AB2 (RK3's ζ¹=0 makes tendencies
 step-local, so checkpoints are smaller than the reference's)."""
 
 from __future__ import annotations
-
-import os as _os
 
 import jax
 import jax.numpy as jnp
@@ -87,9 +85,8 @@ class NonhydrostaticModel:
                  boundary_conditions=None, timestepper="RungeKutta3",
                  pressure_solver=None, background_fields=None,
                  stokes_drift=None, biogeochemistry=None, particles=None,
-                 auxiliary_fields=None,
-                 fused_advection="auto", z_compact="auto", architecture=None,
-                 reference_datetime=None, fuse_correction="auto"):
+                 auxiliary_fields=None, z_compact="auto", architecture=None,
+                 reference_datetime=None):
         from ..parallel.distributed import CPU as _CPU
         if isinstance(architecture, _CPU):
             architecture = None       # CPU()/GPU() markers = the default
@@ -153,20 +150,13 @@ class NonhydrostaticModel:
             required = max(required, getattr(closure, "required_halo", 1))
         halo = [max(h, required) if not grid.is_flat(i) else 0
                 for i, h in enumerate(grid.H)]
-        if fused_advection in (True, "auto") and advection is not None \
-                and not grid.is_flat(1):
-            # Mosaic requires 8-divisible sublane (y) offsets for every
-            # HBM DMA (out tiles land at j·TY + Hy) ⇒ round Hy to a
-            # multiple of 8; a measured Hy=4 attempt failed Mosaic's
-            # "tile index divisible by the tiling (8)" check
-            while halo[1] % 8:
-                halo[1] += 1
-        # z-compact fast layout (TPU): drop the z halos entirely so the
-        # padded minor dimension is a whole number of 128-lane tiles
-        # (kernels/fused_advection.py docstring). Boundary conditions along z
-        # are applied inside the stencils; eligible only for the default
-        # (no-flux / no-penetration) z BCs with no closure/forcing/etc. that
-        # would consume z halos.
+        # z-compact layout: drop the z halos entirely, so no array carries
+        # z halo slots and no z halo fill runs. Boundary conditions along z
+        # are applied inside the stencils (operators/shifts.py shift_zbc);
+        # eligible only for the default (no-flux / no-penetration) z BCs
+        # with no closure/forcing/etc. that would consume z halos. The
+        # N[2] % 128 gate is inherited from the original accelerator's lane
+        # width; whether compact beats padded on the GPU is not measured.
         self._z_compact = False
         if z_compact in (True, "auto"):
             from ..grids.topology import BOUNDED, PERIODIC
@@ -189,19 +179,6 @@ class NonhydrostaticModel:
             if eligible_zc:
                 halo[2] = 0
                 self._z_compact = True
-                fuse_corr_prospect = (
-                    fuse_correction in (True, "auto")
-                    and coriolis is None and buoyancy is None
-                    and (timestepper in ("RungeKutta3", "rk3")
-                         or isinstance(timestepper, RungeKutta3TimeStepper)))
-                if fuse_corr_prospect:
-                    # the correction-fused update kernel consumes one extra
-                    # stencil ring on the slab (q ← q* − Δt∇p before the
-                    # reconstruction) — reserve it in x and y
-                    halo[0] = max(halo[0], required + 1)
-                    halo[1] = max(halo[1], required + 1)
-                    while halo[1] % 8:
-                        halo[1] += 1
             elif z_compact is True:
                 raise ValueError("model configuration is not eligible for "
                                  "the z-compact layout")
@@ -291,103 +268,7 @@ class NonhydrostaticModel:
         if self.particles is not None:
             self.state["particles"] = dict(self.particles.initial)
 
-        # Pallas fused advection megakernel (regular grids): the WENO/upwind
-        # flux assembly runs in VMEM with one HBM read per field per stage.
-        # Under a Distributed architecture the kernel is shard_map-wrapped
-        # (per-shard blocks + ppermute halo strips) since Pallas calls are
-        # opaque to the GSPMD partitioner.
         self.architecture = architecture
-        if architecture is not None:
-            # scoped Pallas-fill opt-out (see fill_halos._pallas_fill_enabled)
-            self.grid._pallas_fill_disabled = True
-        self._fused_advection = None
-        if fused_advection in (True, "auto") and not self.immersed \
-                and not getattr(self.closure, "has_eddy_velocities", False) \
-                and self.advection is not None:
-            from ..kernels.fused_advection import (
-                build_fused_advection, build_sharded_fused_advection,
-                eligible)
-            if architecture is not None and getattr(architecture, "mesh",
-                                                    None) is not None:
-                try:
-                    self._fused_advection = build_sharded_fused_advection(
-                        self.grid, self.advection, self.tracer_names,
-                        architecture.mesh)
-                except ValueError:
-                    if fused_advection is True:
-                        raise
-            elif eligible(self.grid, n_tracers=len(self.tracer_names)):
-                self._fused_advection = build_fused_advection(
-                    self.grid, self.advection, self.tracer_names)
-            elif fused_advection is True:
-                raise ValueError("grid is not eligible for fused advection")
-
-        # fully-fused RK3 path: when advection is the ONLY tendency (the
-        # z-compact gate already excludes closure/forcing/stokes/bgc/
-        # particles/backgrounds) the stage update q + γΔt·G + ζΔt·G⁻ fuses
-        # INTO the megakernel, removing a full elementwise HBM pass per stage
-        self._fused_update = None
-        self._fused_update_planned = (
-            self._fused_advection is not None and self._z_compact
-            and architecture is None
-            and self.coriolis is None and self.buoyancy is None
-            and isinstance(self.timestepper, RungeKutta3TimeStepper))
-
-        # fused projection kernels (z-compact + regular + FFT solver): the
-        # divergence source and the pressure-gradient correction each become
-        # ONE Pallas pass instead of a chain of XLA elementwise sweeps
-        self._fused_div = self._fused_correct = None
-        self._pz_in = self._pz_out = False
-        if (self._z_compact and architecture is None and not self.immersed
-                and isinstance(self.pressure_solver, FFTPoissonSolver)):
-            try:
-                from ..kernels.fused_projection import (build_fused_correct,
-                                                        build_fused_divergence)
-                # z-spectral handoff: the divergence kernel can emit b̂z from
-                # the MXU (zhat_in: solver skips its forward z transform)
-                # and/or the solver can return p̂z (zhat_out: the corr-fused
-                # update kernel applies the iDCT on its VMEM slab).
-                # OCEANANIGANS_TPU_PZHAT: "in"/"out"/"full" probe knob,
-                # default OFF — measured on v5e (bench sweep, 256³): off
-                # 647M, in 646M, out 622M, full 632M cu/s. Mosaic does NOT
-                # overlap the in-kernel MXU transform with the body (the
-                # iDCT serializes after the VPU work; the div-side DCT is
-                # latency-neutral at best), so the saved HBM sweeps never
-                # materialize as time. Equivalence is roundoff (6e-8) —
-                # the machinery stays for hardware with real MXU/VPU
-                # overlap.
-                _pz = _os.environ.get("OCEANANIGANS_TPU_PZHAT", "0")
-                ok_z = self.pressure_solver._dct_axes == [2]
-                self._pz_in = ok_z and _pz in ("1", "in", "full")
-                self._pz_out = ok_z and _pz in ("1", "out", "full")
-                self._fused_div = build_fused_divergence(
-                    self.grid, dct_z=self._pz_in)
-                self._fused_correct = build_fused_correct(self.grid)
-            except ValueError:
-                pass
-
-        # correction-fused update: stages 2-3 apply the previous stage's
-        # pressure correction inside the update megakernel, dropping two of
-        # the three fused_correct HBM passes per RK3 step
-        if fuse_correction == "auto" \
-                and _os.environ.get("OCEANANIGANS_TPU_FUSE_CORRECTION") == "0":
-            fuse_correction = False          # emergency kill-switch
-        self._fuse_correction = (fuse_correction in (True, "auto")
-                                 and self._fused_div is not None)
-        if fuse_correction is True and not (
-                self._fuse_correction and self._fused_update_planned):
-            raise ValueError("model configuration is not eligible for "
-                             "fuse_correction (needs the z-compact fused "
-                             "RK3 path with the FFT solver)")
-        if self._fused_update_planned:
-            from ..kernels.fused_advection import build_fused_advection_update
-            self._fused_update = build_fused_advection_update(
-                self.grid, self.advection, self.tracer_names,
-                with_corr=self._fuse_correction,
-                p_zspectral=self._pz_out)
-        self._fuse_correction = (self._fuse_correction
-                                 and self._fused_update is not None)
-
         self._tendency_hooks = []
         self._state_hooks = []
         self._step = jax.jit(self._build_step())
@@ -470,37 +351,16 @@ class NonhydrostaticModel:
         slot 0 has no left neighbor), and high-order stencils consume that
         ring."""
         out = {}
-        pending = {}
         for name, data in fields.items():
-            if name in skip:
-                out[name] = data
-                continue
-            if self.immersed:
-                # zero prognostic fields inside the topography before the
-                # halo fill (reference: mask_immersed_field! in
-                # update_nonhydrostatic_model_state.jl:23-25)
-                data = self.grid.mask_immersed(data, self.loc(name))
-            pending[name] = data
-        if not pending:
-            return out
-        # one batched Pallas fill for all supported fields (strip DMAs for
-        # every field in a single kernel), XLA fallback per field otherwise
-        from ..boundary_conditions.fill_halos import _pallas_fill_enabled
-        if _pallas_fill_enabled():
-            import jax as _jax
-            from ..kernels.pallas_fill import get_batched_fill
-            names = list(pending)
-            fast = get_batched_fill(
-                self.grid,
-                tuple((tuple(self.loc(n)), self.bcs[n]) for n in names),
-                interpret=_jax.default_backend() == "cpu")
-            if fast is not None:
-                filled = fast(*[pending[n] for n in names])
-                out.update(dict(zip(names, filled)))
-                return out
-        for name, data in pending.items():
-            out[name] = fill_halo_regions(data, self.grid, self.loc(name),
-                                          self.bcs[name], time, dt=dt)
+            if name not in skip:
+                if self.immersed:
+                    # zero prognostic fields inside the topography before
+                    # the halo fill (reference: mask_immersed_field! in
+                    # update_nonhydrostatic_model_state.jl:23-25)
+                    data = self.grid.mask_immersed(data, self.loc(name))
+                data = fill_halo_regions(data, self.grid, self.loc(name),
+                                         self.bcs[name], time, dt=dt)
+            out[name] = data
         return out
 
     @property
@@ -602,11 +462,7 @@ class NonhydrostaticModel:
         zbc = ({"u": "even", "v": "even", "w": "odd_face", "c": "even"}
                if self._z_compact else None)
         G = {}
-        Gc_fused = None
-        if self._fused_advection is not None:
-            G["u"], G["v"], G["w"], Gc_fused = self._fused_advection(
-                ua, va, wa, {n: fields[n] for n in self.tracer_names})
-        elif bg:
+        if bg:
             # perturbation decomposition (reference:
             # nonhydrostatic_tendency_kernel_functions.jl:93-94): advect the
             # PERTURBATION by the total velocity, plus the cross term of the
@@ -663,9 +519,7 @@ class NonhydrostaticModel:
             uat, vat, wat = ua + ue, va + ve, wa + we
 
         for name in self.tracer_names:
-            Gc = (Gc_fused[name] if Gc_fused is not None
-                  else -div_Uc(grid, adv, uat, vat, wat, fields[name],
-                               zbc=zbc))
+            Gc = -div_Uc(grid, adv, uat, vat, wat, fields[name], zbc=zbc)
             if name in bg:
                 # perturbation advecting the background tracer (reference:
                 # nonhydrostatic_tendency_kernel_functions.jl:293)
@@ -718,30 +572,10 @@ class NonhydrostaticModel:
             G = h(grid, fields, G, time)
         return G, aux
 
-    def _project(self, u, v, w, dtt, time, halos_valid=False):
+    def _project(self, u, v, w, dtt, time):
         """Pressure projection (reference: pressure_correction.jl:8-53,
-        solve_for_pressure.jl:12-108). ``halos_valid``: the inputs carry
-        valid periodic halos already (the update kernel's halo-valid
-        outputs) — skip the fill pass."""
+        solve_for_pressure.jl:12-108)."""
         grid = self.grid
-        if self._fused_div is not None:
-            # fast path: Pallas div-source + Pallas grad-correction around
-            # the solve (one HBM read per field per pass; w's boundary-face
-            # pin folded into both kernels)
-            if not halos_valid:
-                filled = self._fill_all(dict(u=u, v=v, w=w), time, dt=dtt)
-                u, v, w = filled["u"], filled["v"], filled["w"]
-            rhs = self._fused_div(u, v, w, 1.0 / dtt)
-            # the div kernel emitted b̂z when _pz_in (solver skips its
-            # forward z transform); the returned p is PHYSICAL either way
-            p_int = self.pressure_solver.solve(rhs, zhat_in=self._pz_in)
-            # one fused pad-wrap materializes the padded p WITH periodic
-            # x/y halos (z-compact ⇒ no z halo slots); replaces the
-            # zeros→embed→fill_halo_regions chain (3 HBM passes → 1)
-            Hx, Hy, _ = grid.H
-            p = jnp.pad(p_int, ((Hx, Hx), (Hy, Hy), (0, 0)), mode="wrap")
-            u, v, w = self._fused_correct(p, u, v, w, dtt)
-            return u, v, w, p
         if self.immersed:
             u = grid.mask_immersed(u, LOC_FCC)
             v = grid.mask_immersed(v, LOC_CFC)
@@ -799,72 +633,6 @@ class NonhydrostaticModel:
 
     def _build_step(self):
         ts = self.timestepper
-
-        if isinstance(ts, RungeKutta3TimeStepper) \
-                and self._fused_update is not None:
-            def step(state, dt):
-                fields = state["fields"]
-                clock = state["clock"]
-                time = clock["time"]
-                p = state["pressure"]
-                Gm = None
-                fast_proj = self._fused_div is not None
-                fuse_corr = self._fuse_correction and fast_proj
-                pend = None        # (padded p, stage_dt) awaiting correction
-                for m, (gamma, zeta) in enumerate(zip(RK3_GAMMAS,
-                                                      RK3_ZETAS)):
-                    stage_dt = (gamma + zeta) * dt
-                    if not fast_proj:
-                        # no fill at ANY stage on the fast-projection path:
-                        # the update megakernel's `new` outputs and
-                        # fused_correct both mirror edge strips into the
-                        # periodic-image halo slots, and the state invariant
-                        # "field halos are valid on step entry" is
-                        # established by set()/__init__/checkpoint-restore
-                        # (set() fills per field; _project ends in
-                        # fused_correct) and preserved by this step. The
-                        # stage-0 fill this removes measured 0.7 ms at 256³
-                        # with a bitwise-identical trajectory.
-                        fields = self._fill_all(fields, time, dt=stage_dt)
-                    kw = {} if pend is None else dict(p=pend[0],
-                                                      corr_dt=pend[1])
-                    Gm, new = self._fused_update(
-                        fields["u"], fields["v"], fields["w"],
-                        {n: fields[n] for n in self.tracer_names},
-                        Gm, gamma * dt, zeta * dt, **kw)
-                    if not fast_proj:
-                        # fast projection pins w's boundary face in-kernel
-                        new["w"] = new["w"] * self._w_face_mask
-                    if fuse_corr and m < 2:
-                        # defer the correction into the NEXT stage's update
-                        # kernel: only solve for p here (two of the three
-                        # fused_correct HBM passes per step disappear)
-                        rhs = self._fused_div(new["u"], new["v"], new["w"],
-                                              1.0 / stage_dt)
-                        # z-spectral handoff: b̂z in (from the div kernel's
-                        # MXU DCT), p̂z out (the NEXT stage's update kernel
-                        # applies the iDCT on its VMEM slab) — the solver
-                        # skips both z transform HBM sweeps
-                        p_int = self.pressure_solver.solve(
-                            rhs, zhat_in=self._pz_in,
-                            zhat_out=self._pz_out)
-                        Hx, Hy, _ = self.grid.H
-                        p = jnp.pad(p_int, ((Hx, Hx), (Hy, Hy), (0, 0)),
-                                    mode="wrap")
-                        pend = (p, stage_dt)
-                    else:
-                        u, v, w, p = self._project(
-                            new["u"], new["v"], new["w"], stage_dt, time,
-                            halos_valid=fast_proj)
-                        new.update(u=u, v=v, w=w)
-                        pend = None
-                    fields = new
-                    time = time + stage_dt
-                clock = dict(time=time, iteration=clock["iteration"] + 1,
-                             last_dt=dt * jnp.ones_like(clock["last_dt"]))
-                return dict(fields=fields, clock=clock, pressure=p)
-
-            return step
 
         if isinstance(ts, RungeKutta3TimeStepper):
             def step(state, dt):
@@ -968,11 +736,8 @@ class NonhydrostaticModel:
     def add_tendency_hook(self, fn):
         """Register a traced TendencyCallsite hook
         ``fn(grid, fields, G, time) -> G`` (reference: Callback with
-        TendencyCallsite, callback.jl). Disables the fused-update fast path
-        (tendencies never materialize inside the megakernel) and re-traces
-        the step."""
+        TendencyCallsite, callback.jl). Re-traces the step."""
         self._tendency_hooks.append(fn)
-        self._fused_update = None
         self._step = jax.jit(self._build_step())
         return fn
 
@@ -1095,8 +860,7 @@ def implicit_vertical_diffusion_w(grid, w, nu, dtt):
     on both boundary faces (impenetrability at the walls).
 
     Stored faces are k = 0..n-1 (face 0 = bottom wall, pinned to 0; the lid
-    face n is not stored and is identically 0 — see the z-compact layout in
-    kernels/fused_projection.py). ``nu`` is a scalar or a padded
+    face n is not stored and is identically 0 in the z-compact layout). ``nu`` is a scalar or a padded
     (c,c,c)-located 3D array (ν in the cell above face k)."""
     h, n = grid.H[2], grid.N[2]
     dzc, dzf = _vertical_spacings(grid)

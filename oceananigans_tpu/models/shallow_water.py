@@ -71,10 +71,9 @@ def advective_tracer_tendencies(grid, scheme, uh, vh, tracer_names,
 def conservative_tendencies(grid, scheme, g, coriolis, hB, tracer_names,
                             fields):
     """Conservative-formulation tendencies G(uh, vh, h, tracers) (reference:
-    solution_and_tracer_tendencies.jl) as pure local stencils over any
-    grid-like object (the model's padded grid, or the fused kernel's
-    scalar-metric slab proxy — kernels/fused_shallow_water.py). Excludes
-    closure/forcing/boundary-flux terms (applied by the caller)."""
+    solution_and_tracer_tendencies.jl) as pure local stencils over the
+    model's padded grid. Excludes closure/forcing/boundary-flux terms
+    (applied by the caller)."""
     h = fields["h"]
     uh, vh = fields["uh"], fields["vh"]
     u = uh / ix_f(grid, h)
@@ -122,7 +121,7 @@ class ShallowWaterModel:
                  advection=None, coriolis=None, bathymetry=0.0,
                  tracers=(), forcing=None, boundary_conditions=None,
                  formulation=CONSERVATIVE, closure=None,
-                 fused="auto", architecture=None, reference_datetime=None):
+                 architecture=None, reference_datetime=None):
         from ..parallel.distributed import CPU as _CPU
         if isinstance(architecture, _CPU):
             architecture = None       # CPU()/GPU() markers = the default
@@ -141,25 +140,6 @@ class ShallowWaterModel:
         required = getattr(self.advection, "required_halo", 1) + 1
         halo = [max(h, required) if not grid.is_flat(i) else 0
                 for i, h in enumerate(grid.H)]
-        from ..kernels.fused_shallow_water import sw_eligible
-        self._fused_eligible = (
-            fused in (True, "auto") and sw_eligible(grid, formulation)
-            and closure is None and not (forcing or {})
-            and not (boundary_conditions or {}))
-        if self._fused_eligible:
-            # Mosaic sublane (x) DMA alignment: slab slices are multiples
-            # of 8 rows (kernels/fused_shallow_water.py)
-            while halo[0] % 8:
-                halo[0] += 1
-            # lane (y) alignment: a 128-divisible padded y extent lets the
-            # kernel read/write the arrays in place (no pad/embed copies —
-            # at 16384² those transient gigabyte copies OOM the 16 GB chip)
-            if grid.N[1] % 2 == 0:
-                while (grid.N[1] + 2 * halo[1]) % 128:
-                    halo[1] += 1
-        elif fused is True:
-            raise ValueError("model configuration is not eligible for the "
-                             "fused shallow-water kernel")
         halo = tuple(halo)
         self.grid = grid.with_halo(halo)
         self.coriolis = coriolis
@@ -204,21 +184,6 @@ class ShallowWaterModel:
                      last_dt=jnp.full((), np.inf, self.grid.dtype))
         self.state = dict(fields=fields, clock=clock)
         self.architecture = architecture
-        self._fused_update = None
-        if self._fused_eligible:
-            if architecture is not None and getattr(architecture, "mesh",
-                                                    None) is not None:
-                from ..kernels.fused_shallow_water import (
-                    build_sharded_fused_sw_update)
-                self._fused_update = build_sharded_fused_sw_update(
-                    self.grid, self.advection, self.g, self.coriolis,
-                    self.bathymetry, self.tracer_names, architecture.mesh)
-            else:
-                from ..kernels.fused_shallow_water import (
-                    build_fused_sw_update)
-                self._fused_update = build_fused_sw_update(
-                    self.grid, self.advection, self.g, self.coriolis,
-                    self.bathymetry, self.tracer_names)
         self._step = jax.jit(self._build_step(), donate_argnums=(0,))
 
     @property
@@ -244,9 +209,8 @@ class ShallowWaterModel:
         return int(self.state["clock"]["iteration"])
 
     def field(self, name):
-        # refresh halos on access: between steps the fused kernels leave
-        # halo slots unwritten (interiors are authoritative; stage-start
-        # fills re-derive halos inside the step)
+        # refresh halos on access: the step fills halos at the start of
+        # each stage, so between steps only the interiors are current
         data = fill_halo_regions(self.state["fields"][name], self.grid,
                                  self.loc(name), self.bcs[name],
                                  self.state["clock"]["time"])
@@ -360,19 +324,15 @@ class ShallowWaterModel:
             Gm = None
             for gamma, zeta in zip(RK3_GAMMAS, RK3_ZETAS):
                 fields = self._fill_all(fields, time)
-                if self._fused_update is not None:
-                    Gm, fields = self._fused_update(fields, Gm, gamma * dt,
-                                                    zeta * dt)
-                else:
-                    G = self._compute_tendencies(fields, time)
-                    new = {}
-                    for name in fields:
-                        inc = gamma * G[name]
-                        if zeta != 0.0:
-                            inc = inc + zeta * Gm[name]
-                        new[name] = fields[name] + dt * inc
-                    fields = new
-                    Gm = G
+                G = self._compute_tendencies(fields, time)
+                new = {}
+                for name in fields:
+                    inc = gamma * G[name]
+                    if zeta != 0.0:
+                        inc = inc + zeta * Gm[name]
+                    new[name] = fields[name] + dt * inc
+                fields = new
+                Gm = G
                 time = time + (gamma + zeta) * dt
             clock = dict(time=time, iteration=clock["iteration"] + 1,
                          last_dt=dt * jnp.ones_like(clock["last_dt"]))

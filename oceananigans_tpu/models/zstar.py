@@ -9,7 +9,7 @@ the FLUID column depth, column_depthᶠᶜᵃ) and
 hydrostatic_free_surface_ab2_step.jl:116-130 (σ-weighted conservative tracer
 update c ← (σⁿ c + Δt G)/σⁿ⁺¹).
 
-TPU-first: the static grid never changes; a lightweight TRACED proxy wraps it
+Design: the static grid never changes; a lightweight TRACED proxy wraps it
 with the σ(x, y, t) scale factors, and the operator layer — which only ever
 asks for broadcastable metric factors — consumes the traced metrics
 unchanged. Land columns (immersed grids) keep σ ≡ 1 so the solid-region

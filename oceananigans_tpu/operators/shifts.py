@@ -7,10 +7,10 @@ at least the stencil radius and halos are refreshed by ``fill_halos`` between
 stencil applications, garbage never reaches the interior. This mirrors the
 reference's offset-array + halo design (reference: src/Grids/new_data.jl,
 src/BoundaryConditions/fill_halo_regions.jl) but with static shapes so XLA
-fuses every shifted read into the consuming elementwise kernel on the VPU.
+fuses every shifted read into the consuming elementwise kernel.
 
 ``jnp.roll`` is deliberately NOT used: wrap-around is wrong for Bounded
-topologies and lane-rotations are slower than fused slice reads.
+topologies.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ import jax.numpy as jnp
 from jax import lax
 
 
-def _shift_raw(a, s, axis):
+def shift(a, s, axis):
+    """out[i] = a[i + s] along ``axis``; zero-fill out-of-range (halo-only)."""
     if s == 0:
         return a
     n = a.shape[axis]
@@ -33,101 +34,10 @@ def _shift_raw(a, s, axis):
     return jnp.pad(sl, pad)
 
 
-# -- packed (y,z)-flattened minor-dim mode -------------------------------------
-#
-# For Pallas kernels on shallow grids (Nz ≪ 128) the 128-lane minor-dim
-# padding wastes up to 4× of the VPU (kernels/fused_vector_invariant.py).
-# In PACKED mode the in-flight 3D arrays are (x, rows, 128) views of the
-# row-major flattened (y, z) plane: flat = y·ZP + z with ZP = the padded z
-# extent (z halos INCLUDED). Then
-#     shift along z by s  ≡  flat shift by s
-#     shift along y by s  ≡  flat shift by s·ZP
-# and cross-column reads land in halo slots only — exactly the guarantee the
-# zero-fill of the unpacked shift provides, so the stencil/halo contract is
-# unchanged. Activated by kernel builders around record/trace passes.
-
-_PACKED_ZP = None
-_PACKED_CACHE = None
-
-
-class packed_mode:
-    """Context manager: interpret axis-1/2 shifts of 3D arrays as flat
-    shifts of a (y,z)-flattened minor dim with padded-z extent ``zp``.
-
-    Carries an identity-keyed shift cache: flat shifts cost ~3 ops each
-    (row shift + two-piece lane concat) and WENO bodies request the same
-    (array, offset) pairs repeatedly — deduping keeps the Mosaic program
-    size (and its superlinear compile time) in check. Keys hold strong
-    refs to the arrays, so ids stay unique for the cache's lifetime
-    (one kernel trace)."""
-
-    def __init__(self, zp):
-        self.zp = int(zp)
-
-    def __enter__(self):
-        global _PACKED_ZP, _PACKED_CACHE
-        self._prev = (_PACKED_ZP, _PACKED_CACHE)
-        _PACKED_ZP = self.zp
-        _PACKED_CACHE = {}
-
-    def __exit__(self, *exc):
-        global _PACKED_ZP, _PACKED_CACHE
-        _PACKED_ZP, _PACKED_CACHE = self._prev
-        return False
-
-
-def _flat_shift(a, s):
-    """Shift a (x, rows, 128) array by ``s`` along the flattened minor dim:
-    out[f] = a_flat[f + s]; zero-fill out-of-range. Decomposed into a row
-    shift plus a two-piece lane shift with single-row carry — all static
-    slices, Mosaic-friendly. Results are memoized per packed_mode trace."""
-    if s == 0:
-        return a
-    key = (id(a), s)
-    hit = _PACKED_CACHE.get(key)
-    if hit is not None:
-        return hit[1]
-    out = _flat_shift_impl(a, s)
-    _PACKED_CACHE[key] = (a, out)  # strong ref to `a` keeps id unique
-    return out
-
-
-def _flat_shift_impl(a, s):
-    L = a.shape[-1]
-    if s > 0:
-        q, r = divmod(s, L)
-        if r == 0:
-            return _shift_raw(a, q, 1)
-        # route row shifts through the cache: b and its successor row view
-        # are shared by every offset with the same row quotient
-        b = _flat_shift(a, q * L) if q else a
-        # carry from the NEXT row (zero row past the end = true zero-fill)
-        nxt = _flat_shift(a, (q + 1) * L)
-        return jnp.concatenate([b[:, :, r:], nxt[:, :, :r]], axis=-1)
-    # negative s: ceil-rounded row shift + carry from the PREVIOUS row —
-    # floor-rounding would pair a row-down shift with a LARGE positive lane
-    # shift whose last-row carry reads the zero-fill row past the end even
-    # for in-range flat targets
-    q = -((-s) // L)
-    r = s - q * L  # in (-L, 0]
-    if r == 0:
-        return _shift_raw(a, q, 1)
-    b = _flat_shift(a, q * L) if q else a
-    prv = _flat_shift(a, (q - 1) * L)
-    return jnp.concatenate([prv[:, :, L + r:], b[:, :, :L + r]], axis=-1)
-
-
-def shift(a, s, axis):
-    """out[i] = a[i + s] along ``axis``; zero-fill out-of-range (halo-only)."""
-    if _PACKED_ZP is not None and axis != 0 and a.ndim == 3:
-        return _flat_shift(a, s * (_PACKED_ZP if axis == 1 else 1))
-    return _shift_raw(a, s, axis)
-
-
 def shift_zbc(a, s, axis, kind, n=None):
     """``shift`` for a HALO-FREE bounded axis: out-of-range reads are fixed
     up with the boundary-condition values the halo would have carried
-    (kernels/fused_advection.py z-compact mode):
+    (the nonhydrostatic model's z-compact layout):
 
     - ``"even"``   — mirror about the boundary faces (the default no-flux
       fill of center-located fields): a[-1-m] = a[m], a[N+m] = a[N-1-m].

@@ -1,12 +1,11 @@
 from .distributed import (CPU, GPU, Distributed, Partition,
                           Equal, Fractional, Sizes,
                           XPartition, YPartition, CubedSpherePartition)
-from .halo_exchange import halo_exchange_local, make_halo_exchange
 from .pencil_fft import (DistributedFFTPoissonSolver,
                          DistributedFourierTridiagonalPoissonSolver)
 
 __all__ = ["CPU", "GPU", "Distributed", "Partition",
            "Equal", "Fractional", "Sizes",
-           "XPartition", "YPartition", "CubedSpherePartition", "halo_exchange_local",
-           "make_halo_exchange", "DistributedFFTPoissonSolver",
+           "XPartition", "YPartition", "CubedSpherePartition",
+           "DistributedFFTPoissonSolver",
            "DistributedFourierTridiagonalPoissonSolver"]

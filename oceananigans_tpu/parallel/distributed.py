@@ -4,21 +4,17 @@ Reference semantics: src/DistributedComputations/distributed_architectures.jl
 — `Partition{Sx,Sy,Sz}` rank layouts (:14-18) and the `Distributed`
 architecture (:166-302) that owns the communicator.
 
-TPU-first design: there is no MPI. The "communicator" is a
-``jax.sharding.Mesh`` over the chips with axes ("x", "y") — spatial domain
-decomposition in the horizontal, the framework's parallelism strategy
-(SURVEY.md §5). Two execution paths share it:
-
-* **global-view (GSPMD)**: the model state (halo-padded global arrays) is
-  placed with ``NamedSharding(mesh, P("x", "y", None))`` and the jitted step
-  runs unchanged — XLA partitions every stencil and inserts the halo
-  collectives itself. This mirrors the reference's Reactant/sharded-grids
-  path (ext/OceananigansReactantExt/Grids/sharded_grids.jl:20-56) and is the
-  default.
-* **explicit shard_map**: hand-written ppermute halo exchange over ICI
-  (parallel/halo_exchange.py) for when the compiler's choices need
-  overriding — the analogue of the reference's hand-rolled MPI
-  Isend/Irecv halo passing (halo_communication.jl)."""
+Design: there is no MPI. The "communicator" is a ``jax.sharding.Mesh`` over
+the devices with axes ("x", "y") — spatial domain decomposition in the
+horizontal (SURVEY.md §5). The model state (halo-padded global arrays) is
+placed with ``NamedSharding(mesh, P("x", "y", None))`` and the jitted step
+runs unchanged: XLA's GSPMD partitioner splits every stencil and inserts the
+halo collectives itself, for every topology. This mirrors the reference's
+Reactant/sharded-grids path
+(ext/OceananigansReactantExt/Grids/sharded_grids.jl:20-56). The pencil
+Poisson solvers (parallel/pencil_fft.py) are the one explicit ``shard_map``
+path. The mesh shape follows the device count alone: the GPUs of one host
+are joined all to all, so no axis order is preferred."""
 
 from __future__ import annotations
 
@@ -44,7 +40,7 @@ class CPU:
 class GPU(CPU):
     """Single-accelerator architecture marker (reference:
     src/Architectures.jl:44). A no-op under JAX: the default backend is
-    already the accelerator (TPU here); kept so reference scripts port."""
+    already the accelerator; kept so reference scripts port."""
 
     def __repr__(self):
         return "GPU()"
@@ -53,8 +49,8 @@ class GPU(CPU):
 class Equal:
     """Equal split along a direction (reference: distributed_architectures.jl
     Equal) — ``Partition(x=Equal(), y=2)`` divides x over whatever device
-    count remains. Under GSPMD every split is equal by construction (TPU
-    pods are homogeneous), so this is the only split kind that shards."""
+    count remains. Under GSPMD every split is equal by construction, so
+    this is the only split kind that shards."""
 
     def __repr__(self):
         return "Equal()"
@@ -62,25 +58,25 @@ class Equal:
 
 class Fractional:
     """Uneven fractional split (reference: Fractional(ϵ₁, ϵ₂, …)). An MPI
-    load-balancing concept with no TPU benefit: XLA's GSPMD partitioner
-    shards arrays in equal tiles, and TPU chips are homogeneous — raises
-    with that explanation rather than silently equalizing."""
+    load-balancing concept: XLA's GSPMD partitioner shards arrays in equal
+    tiles over identical devices — raises with that explanation rather than
+    silently equalizing."""
 
     def __init__(self, *fractions):
         raise NotImplementedError(
             "Fractional partitions are an MPI load-balancing device; under "
-            "GSPMD all shards are equal tiles on homogeneous TPU chips. "
+            "GSPMD all shards are equal tiles on identical devices. "
             "Use Partition(x=<int>) or Partition(x=Equal()).")
 
 
 class Sizes:
     """Explicit per-rank sizes (reference: Sizes(n₁, n₂, …)); see
-    :class:`Fractional` for why this does not exist on TPU meshes."""
+    :class:`Fractional` for why this does not exist on device meshes."""
 
     def __init__(self, *sizes):
         raise NotImplementedError(
             "Sizes partitions are an MPI load-balancing device; under GSPMD "
-            "all shards are equal tiles on homogeneous TPU chips. "
+            "all shards are equal tiles on identical devices. "
             "Use Partition(x=<int>) or Partition(x=Equal()).")
 
 
@@ -105,7 +101,7 @@ def CubedSpherePartition(*args, **kw):
         "CubedSpherePartition is a MultiRegion (explicit per-device region)"
         " concept; the GSPMD path shards the panel-batched cubed-sphere "
         "state instead — construct the model with architecture="
-        "Distributed(...) (see docs/tpu_design.md).")
+        "Distributed(...) (see docs/design.md).")
 
 
 class Partition:
@@ -150,17 +146,12 @@ class Distributed:
 
     Usage::
 
-        arch = Distributed(Partition(x=2, y=4))          # 8 chips
+        arch = Distributed(Partition(x=2, y=4))          # 8 devices
         state = arch.shard(model.state)                  # place on the mesh
         model.state = state                              # step as usual
     """
 
     def __init__(self, partition=None, devices=None):
-        # the single-chip Pallas fast paths (halo fill, megakernel) don't
-        # partition under GSPMD yet — models built WITH this architecture
-        # mark their grids _pallas_fill_disabled (scoped; flipping the
-        # process-global default here used to disable the fast path for
-        # every unrelated single-chip model too — round-5 review)
         if devices is None:
             devices = jax.devices()
         n = len(devices)

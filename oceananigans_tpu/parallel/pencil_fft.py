@@ -8,8 +8,8 @@ field is computed by making one direction local at a time:
     transform(z, y local) → transpose y↔x (MPI.Alltoallv!) → FFT(x) →
     eigen-divide (or vertical tridiagonal solve) → inverse chain
 
-TPU-native: the transposes are ``lax.all_to_all`` over the mesh axis (one
-fused ICI collective instead of the reference's buffer-packing Alltoallv,
+Design: the transposes are ``lax.all_to_all`` over the mesh axis (one
+collective instead of the reference's buffer-packing Alltoallv,
 distributed_transpose.jl:4-188), run inside a single shard_map region so XLA
 can overlap them with the local transforms. The vertical direction is NEVER
 sharded in this decomposition, so the bounded-z DCT (matmul, local) and the

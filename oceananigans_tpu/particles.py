@@ -6,7 +6,7 @@ Reference semantics: src/Models/LagrangianParticleTracking/ —
 + wall bouncing with restitution (lagrangian_particle_advection.jl:195-223),
 tracked-field interpolation (update_lagrangian_particle_properties.jl).
 
-TPU-first: positions are (n,) arrays in the state pytree; interpolation is a
+Design: positions are (n,) arrays in the state pytree; interpolation is a
 vectorized trilinear gather (fractional indices from `jnp.interp` against the
 padded coordinate arrays — works on stretched grids too); the whole advection
 step fuses into the jitted model step. The reference's per-particle kernel

@@ -1,7 +1,7 @@
 """Callback callsites (reference: src/Oceananigans.jl:202-204 —
 `TimeStepCallsite`, `TendencyCallsite`, `UpdateStateCallsite`; callback.jl).
 
-TPU-first split: `TimeStepCallsite` callbacks are ordinary host callbacks
+Design split: `TimeStepCallsite` callbacks are ordinary host callbacks
 running between jitted steps (the default). `TendencyCallsite` and
 `UpdateStateCallsite` callbacks run INSIDE the compiled step, so they must be
 TRACEABLE functions with the traced signatures

@@ -5,7 +5,7 @@ serialize fields or arbitrary functions-of-model on a schedule, with file
 splitting), `WindowedTimeAverage` (windowed_time_average.jl:15,151), and
 `output_writer_utils.jl` (fetch_output).
 
-TPU-first/Python-native format: instead of JLD2 (a Julia/HDF5 container), a
+Python-native format: instead of JLD2 (a Julia/HDF5 container), a
 `FieldDataset` directory with one ``.npy`` per (output, iteration) plus a
 ``series.json`` index — append-only, dependency-free, and readable by the
 OutputReaders.FieldTimeSeries analogue. NetCDF output is provided when a

@@ -4,7 +4,7 @@ Reference semantics: src/Simulations/simulation.jl (struct :10-30, ctor
 :68-110 — auto-installed stop criteria and NaNChecker) and run.jl (run! :92-113,
 time_step! :125-176, Δt alignment :24-57).
 
-TPU-first: the loop itself is plain Python — everything inside
+Design: the loop itself is plain Python — everything inside
 ``model.time_step(dt)`` is one compiled XLA program. Callbacks/writers fire on
 host between steps; NaN checking syncs device→host only every N iterations."""
 
@@ -46,9 +46,8 @@ class NaNChecker:
                  if getattr(v, "ndim", 0) >= 2}
             names = ("u",) if "u" in avail else (next(iter(avail)),)
         for name in names:
-            # sample the interior only: halo slots may legitimately hold
-            # uninitialized memory between fills (fused kernels write
-            # interiors and let the next fill re-derive halos)
+            # sample the interior only: halo slots may be stale between
+            # fills (the next fill re-derives halos)
             data = sim.model.field(name).interior
             if bool(np.isnan(np.asarray(data).ravel()[::max(1, data.size // 4096)]).any()):
                 sim.running = False

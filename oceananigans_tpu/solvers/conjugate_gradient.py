@@ -5,7 +5,7 @@ linear-operator CG with optional preconditioner) and
 conjugate_gradient_poisson_solver.jl:10 (CG Poisson for immersed-boundary
 grids with the FFT solver as preconditioner).
 
-TPU-first: the iteration is a ``lax.while_loop`` on the residual norm — fully
+Design: the iteration is a ``lax.while_loop`` on the residual norm — fully
 inside jit, no host round trips; dot products are single fused reductions."""
 
 from __future__ import annotations

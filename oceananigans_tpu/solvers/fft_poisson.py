@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..grids.topology import BOUNDED, FLAT, PERIODIC
+from ..platform import use_matmul_dft
 from .transforms import dct_forward, dct_inverse
 
 
@@ -58,30 +59,18 @@ class FFTPoissonSolver:
              else self._dct_axes).append(axis)
         self.eigenvalues = lam
 
-    def solve(self, b, zhat_in=False, zhat_out=False):
+    def solve(self, b):
         """Solve ∇²φ = b for interior array b (shape grid.N); returns interior
         φ with zero mean.
 
         Transform order: DCT axes first (real→real), then FFT axes — the axes
         commute, and this keeps every DCT on REAL data. The FIRST FFT axis
         uses a real FFT (half spectrum: ~2× less transform and eigen-divide
-        work); the inverse takes the real part after the inverse FFTs.
-
-        ``zhat_in``/``zhat_out``: treat the input as ALREADY DCT-z transformed
-        / return the solution still in DCT-z space (requires a Bounded z with
-        all other DCT axes absent). Used by the fused-projection fast path:
-        the divergence kernel emits b̂z from the MXU and the update kernel
-        applies the iDCT on its VMEM slab, so the solver skips the two z
-        transform HBM passes (4 array sweeps per solve)."""
-        if (zhat_in or zhat_out) and self._dct_axes != [2]:
-            raise ValueError("zhat_in/zhat_out need z as the only DCT axis")
-        ns = [b.shape[ax] for ax in self._fft_axes + self._dct_axes]
-        if ns and _use_matmul_dft(max(ns)):
-            return self._solve_matmul(b, zhat_in=zhat_in, zhat_out=zhat_out)
+        work); the inverse takes the real part after the inverse FFTs."""
+        if self._fft_axes + self._dct_axes and use_matmul_dft():
+            return self._solve_matmul(b)
         bh = b
         for axis in self._dct_axes:
-            if zhat_in and axis == 2:
-                continue
             bh = dct_forward(bh, axis)
         rfft_axis = self._fft_axes[0] if self._fft_axes else None
         lam = self.eigenvalues
@@ -107,26 +96,20 @@ class FFTPoissonSolver:
         if jnp.iscomplexobj(ph):
             ph = jnp.real(ph)
         for axis in reversed(self._dct_axes):
-            if zhat_out and axis == 2:
-                continue
             ph = dct_inverse(ph, axis)
         return ph.astype(b.dtype)
 
-    def _solve_matmul(self, b, zhat_in=False, zhat_out=False):
-        """All-matmul eigenfunction solve: every 1D transform is an MXU
-        matmul (DCT-II for Bounded axes; split-real cos/sin DFT with a half
-        spectrum on the first Periodic axis, full split-real DFT on the rest).
-        The spectral state is an explicit (re, im) pair of REAL arrays — no
-        complex dtype anywhere, so every contraction is a plain real matmul
-        at transforms.MATMUL_PRECISION (bf16x3 default on TPU: 2.58 ms /
-        9e-5 residual at 256³ v5e vs 3.57 ms / 1.7e-6 for 6-pass f32; both
-        ~2× faster than the XLA FFT path). TPU-native replacement for the
-        reference's FFTW/cuFFT plans (plan_transforms.jl)."""
+    def _solve_matmul(self, b):
+        """All-matmul eigenfunction solve (the CPU path, see
+        platform.use_matmul_dft): every 1D transform is a matmul (DCT-II for
+        Bounded axes; split-real cos/sin DFT with a half spectrum on the
+        first Periodic axis, full split-real DFT on the rest). The spectral
+        state is an explicit (re, im) pair of REAL arrays — no complex dtype
+        anywhere, so every contraction is a plain real matmul at
+        transforms.MATMUL_PRECISION."""
         from .transforms import dct2_matrix, idct2_matrix
         re, im = b, None
         for axis in self._dct_axes:
-            if zhat_in and axis == 2:
-                continue
             re = _matmul(dct2_matrix(b.shape[axis]), re, axis)
         lam = self.eigenvalues
         rfft_axis = self._fft_axes[0] if self._fft_axes else None
@@ -171,8 +154,6 @@ class FFTPoissonSolver:
             re = (_matmul(np.real(Wi), re, rfft_axis)
                   - _matmul(np.imag(Wi), im, rfft_axis))
         for axis in reversed(self._dct_axes):
-            if zhat_out and axis == 2:
-                continue
             re = _matmul(idct2_matrix(re.shape[axis]), re, axis)
         return re.astype(b.dtype)
 
@@ -187,17 +168,6 @@ def _dft_matrices(N):
     return W, W.conj() / N
 
 
-def _use_matmul_dft(n=0):
-    # XLA:CPU's fft thunk RET_CHECKs on non-dim0-major layouts that arise
-    # under SPMD partitioning; the DFT as a matmul partitions cleanly.
-    # On TPU the matmul path (split-real, see _solve_matmul) runs on the MXU
-    # and measures ~2× FASTER than the XLA FFT butterflies at N=256 (which
-    # additionally need physical transposes to the innermost axis); use it
-    # for per-axis extents where the O(N) extra flops stay cheap on the MXU.
-    backend = jax.default_backend()
-    return backend == "cpu" or (backend != "gpu" and n <= 2048)
-
-
 @functools.lru_cache(maxsize=None)
 def _dft_cos_sin(N):
     ang = 2 * np.pi * np.outer(np.arange(N), np.arange(N)) / N
@@ -205,8 +175,8 @@ def _dft_cos_sin(N):
 
 
 def _matmul(M, a, axis):
-    """M @ a contracting along ``axis`` — no physical transpose; bf16x3 MXU
-    precision (see transforms.MATMUL_PRECISION)."""
+    """M @ a contracting along ``axis`` — no physical transpose; at
+    transforms.MATMUL_PRECISION."""
     from .transforms import MATMUL_PRECISION, _EINSUM_3D
     M = jnp.asarray(M, a.dtype)
     if a.ndim == 3:
@@ -216,18 +186,10 @@ def _matmul(M, a, axis):
     return jnp.moveaxis(out, -1, axis)
 
 
-def _use_complex_matmul_dft():
-    # complex-dtype matmuls hit unimplemented TPU runtime paths when embedded
-    # in larger programs; the split-real path in _solve_matmul is the TPU
-    # matmul route. These complex helpers go matmul only on CPU (XLA:CPU's
-    # fft thunk breaks under SPMD layouts; a matmul-DFT partitions cleanly).
-    return jax.default_backend() == "cpu"
-
-
 def fft_along(a, axis):
     """FFT along ``axis`` — matmul-DFT (CPU) or native FFT on the innermost
     axis."""
-    if _use_complex_matmul_dft():
+    if use_matmul_dft():
         W, _ = _dft_matrices(a.shape[axis])
         return _matmul(W, a.astype(jnp.result_type(a.dtype, jnp.complex64)),
                        axis)
@@ -238,7 +200,7 @@ def fft_along(a, axis):
 
 
 def ifft_along(a, axis):
-    if _use_complex_matmul_dft():
+    if use_matmul_dft():
         _, Wi = _dft_matrices(a.shape[axis])
         return _matmul(Wi, a.astype(jnp.result_type(a.dtype, jnp.complex64)),
                        axis)
@@ -265,10 +227,10 @@ def _rdft_matrices(N):
 
 def rfft_along(a, axis):
     """Real FFT along ``axis`` (half spectrum). On the matmul path the REAL
-    input is hit with separate cos/sin REAL matmuls (2 MXU passes — no
-    complex promotion of the input)."""
+    input is hit with separate cos/sin REAL matmuls (no complex promotion of
+    the input)."""
     n = a.shape[axis]
-    if _use_complex_matmul_dft():
+    if use_matmul_dft():
         if not jnp.iscomplexobj(a):
             C, S = _rdft_cos_sin(n)
             return jax.lax.complex(_matmul(C, a, axis), -_matmul(S, a, axis))
@@ -281,7 +243,7 @@ def rfft_along(a, axis):
 
 
 def irfft_along(a, axis, n):
-    if _use_complex_matmul_dft():
+    if use_matmul_dft():
         _, Wi = _rdft_matrices(n)
         # x = Re(Wi @ X) = Re(Wi) @ Re(X) - Im(Wi) @ Im(X): 2 real matmuls
         return (_matmul(np.real(Wi), jnp.real(a), axis)

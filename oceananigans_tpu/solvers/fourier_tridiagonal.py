@@ -14,9 +14,9 @@ with Neumann (staggered) walls: the boundary coupling terms are dropped. The
 singular (λ=0) mode is regularized by pinning φ[0] = 0 for that mode (the
 zero-mode fix, analogue of the reference's mean subtraction).
 
-TPU-first: the tridiagonal runs along the MINOR axis — for a stretched x or
+Design: the tridiagonal runs along the MINOR axis — for a stretched x or
 y the batch is transposed so the scan axis is last (one cheap transpose pair
-around the scan; the transforms already run on the MXU matmul path)."""
+around the scan)."""
 
 from __future__ import annotations
 

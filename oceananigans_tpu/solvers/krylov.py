@@ -2,7 +2,7 @@
 
 Reference semantics: src/Solvers/krylov_solver.jl (:101) — a thin wrapper
 around Krylov.jl's gmres/cg with a generic linear-operator callback and
-optional preconditioner. TPU-native: `jax.scipy.sparse.linalg` provides
+optional preconditioner. Design: `jax.scipy.sparse.linalg` provides
 matrix-free GMRES/BiCGStab/CG that trace into the jitted step (restarted
 GMRES runs as lax control flow, no host iteration)."""
 

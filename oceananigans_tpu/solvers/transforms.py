@@ -4,15 +4,12 @@ Reference semantics: src/Solvers/plan_transforms.jl + discrete_transforms.jl —
 FFT along Periodic dimensions, DCT (FFTW REDFT10/01, i.e. DCT-II/III) along
 Bounded dimensions.
 
-TPU-first: XLA has no native real-to-real transform. We provide two DCT
-paths:
+XLA has no native real-to-real transform. There are two DCT paths:
 
-* **matmul-DCT** (default): the N×N cosine matrix applied on the MXU. For the
-  N ≤ 1024 extents typical per-axis this is competitive with (and on TPU often
-  faster than) FFT-based r2r tricks, and it is exact for any N.
+* **matmul-DCT** (the solvers' path): the N×N cosine matrix applied as one
+  matmul along the axis. Exact for any N; O(N²) per line.
 * **fft-DCT** (Makhoul's even-permutation algorithm): DCT-II via a single
-  complex FFT of the even/odd reordered sequence — O(N log N) for very large
-  extents.
+  complex FFT of the even/odd reordered sequence — O(N log N).
 
 Both are validated against each other in tests (the analogue of the
 reference's GPU index-permutation DCT, src/Solvers/index_permutations.jl).
@@ -43,23 +40,12 @@ def idct2_matrix(N):
     return np.linalg.inv(dct2_matrix(N))
 
 
-# Contract along any axis of a 3D array WITHOUT a physical transpose — XLA
-# feeds the MXU directly from either layout.
-#
-# MXU precision for the transform matmuls (measured at 256³ on v5e, full
-# Poisson solve |∇²p − b|/|b| and fused-loop ms/solve):
-#   "float32"     (6-pass bf16)  1.7e-6 residual   3.57 ms
-#   "bfloat16_3x" (3-pass bf16)  9.0e-5 residual   2.58 ms   ← TPU default
-#   "bfloat16"    (1-pass)       2.0e-2 residual   — unusable
-# The projection re-removes the (non-accumulating) residual divergence every
-# step, so the 9e-5 solve residual is far below the advection truncation
-# error; strict runs can export OCEANANIGANS_TPU_SOLVER_PRECISION=float32 or
-# set transforms.MATMUL_PRECISION. CPU ignores einsum precision (always f32),
-# so the CPU test-suite tolerances are unaffected.
+# Contract along any axis of a 3D array WITHOUT a physical transpose.
 _EINSUM_3D = {0: "kn,nij->kij", 1: "kn,inj->ikj", 2: "kn,ijn->ijk"}
-import os as _os
-MATMUL_PRECISION = _os.environ.get("OCEANANIGANS_TPU_SOLVER_PRECISION",
-                                   "bfloat16_3x")
+# Full float32 matmuls: a lower precision lets the GPU run float32 products
+# in TF32 (about three decimal digits), which every pressure solve's
+# bounded-z DCT would inherit.
+MATMUL_PRECISION = "highest"
 
 
 def _apply_matrix_along(a, M, axis):

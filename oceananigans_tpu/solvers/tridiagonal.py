@@ -9,9 +9,9 @@ solve, for every column (i, j), the system
 
 Coefficients may be 1D (z-only) or full 3D arrays.
 
-TPU-first: the Thomas recurrence is sequential in z but embarrassingly
+Design: the Thomas recurrence is sequential in z but embarrassingly
 parallel over the (Nx, Ny) plane, so we ``lax.scan`` over the z-axis with
-(Nx, Ny)-shaped carries — each scan step is one fused VPU kernel over the
+(Nx, Ny)-shaped carries — each scan step is one fused kernel over the
 whole horizontal plane. z is moved to the leading axis for unit-stride plane
 slices."""
 

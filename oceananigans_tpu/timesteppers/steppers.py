@@ -7,7 +7,7 @@ pressure correction per substep) and quasi_adams_bashforth_2.jl
 (Uⁿ⁺¹ = Uⁿ + Δt[(3/2+χ)Gⁿ - (1/2+χ)Gⁿ⁻¹]; χ = -0.5 reduces to forward Euler,
 used on the first step and after Δt changes).
 
-TPU-first: a stepper is pure configuration. The model builds ONE jitted
+Design: a stepper is pure configuration. The model builds ONE jitted
 ``step(state, dt) -> state`` closing over it; the RK3 substep loop is unrolled
 at trace time (3 fused stages), and AB2's Euler fallback is a traced
 ``jnp.where`` on the iteration counter rather than host control flow

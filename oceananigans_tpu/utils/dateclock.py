@@ -1,7 +1,7 @@
 """Calendar-time clocks (reference: src/TimeSteppers/clock.jl — `Clock`
 holds a `DateTime`/`TimeDate`; validation/dateclocks).
 
-TPU-first split: the traced clock stays a float-seconds scalar inside the
+Design split: the traced clock stays a float-seconds scalar inside the
 jitted step (datetimes cannot be traced); models carry a host-side
 ``reference_datetime`` and expose ``model.datetime`` = reference + seconds.
 Schedules, ``Simulation(stop_time=...)``, and ``SpecifiedTimes`` accept

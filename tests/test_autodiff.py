@@ -20,8 +20,7 @@ def test_gradient_through_steps():
     grid = RectilinearGrid(size=(8, 8, 4), extent=(1, 1, 1),
                            topology=("periodic", "periodic", "periodic"))
     model = NonhydrostaticModel(grid=grid, tracers=("c",),
-                                advection=Centered(2),
-                                fused_advection=False)
+                                advection=Centered(2))
     model.set(u=lambda x, y, z: 0.1 * jnp.sin(2 * jnp.pi * x))
     step = model._build_step()
     dt = jnp.asarray(1e-2, grid.dtype)
@@ -60,7 +59,7 @@ def test_gradient_wrt_viscosity_parameter():
     def ke_after(nu):
         # rebuild the tendency path with a traced nu: use forcing-style
         # diffusion to keep the configuration static
-        model = NonhydrostaticModel(grid=grid, fused_advection=False)
+        model = NonhydrostaticModel(grid=grid)
         model.set(u=u0)
         state = model.state
         step = model._build_step()

@@ -67,8 +67,7 @@ def _advected_gaussian_error(n, scheme):
     grid = RectilinearGrid(size=(n,), x=(0, L),
                            topology=("periodic", "flat", "flat"),
                            halo=6, dtype=jnp.float64)
-    model = NonhydrostaticModel(grid=grid, advection=scheme, tracers=("c",),
-                                fused_advection=False)
+    model = NonhydrostaticModel(grid=grid, advection=scheme, tracers=("c",))
     sig = 0.08
     c0 = lambda x, y, z: jnp.exp(-(x - 0.5) ** 2 / (2 * sig ** 2))
     model.set(u=U, c=c0)

@@ -73,13 +73,16 @@ def test_f32_vs_f64_hydrostatic_gravity_wave():
 
 
 def test_matmul_transform_precision_modes():
-    """The MXU transform precision ladder (solvers/transforms.py): the
-    bfloat16_3x (3-pass compensated) mode must land within ~1e-4 relative
-    of the float32 mode on a DCT round trip, and single-pass bfloat16 must
-    be visibly worse — the ordering that justifies bf16x3 as the TPU
-    default. On CPU, einsum precision is advisory, so the modes are
-    emulated by casting the operands per pass."""
-    from oceananigans_tpu.solvers.transforms import dct2_matrix
+    """The matmul precision ladder behind solvers/transforms.py: a 3-pass
+    compensated bfloat16 product lands within ~1e-4 relative of float32 on
+    a DCT, and a single bfloat16 pass is visibly worse. Reduced-precision
+    passes (TF32 on the GPU is of the same order as bf16x3) are why the
+    transforms run at "highest". On CPU, einsum precision is advisory, so
+    the modes are emulated by casting the operands per pass."""
+    from oceananigans_tpu.solvers.transforms import (MATMUL_PRECISION,
+                                                      dct2_matrix)
+
+    assert MATMUL_PRECISION == "highest"
 
     n = 128
     rng = np.random.default_rng(3)

@@ -187,28 +187,3 @@ def test_vertically_implicit_diffusion_stability():
     assert np.isclose(float(model.field("c").sum()), total0, rtol=1e-10)
     # end state ≈ fully mixed
     assert np.max(c) - np.min(c) < 0.05
-
-
-@pytest.mark.slow
-def test_fused_advection_matches_xla_path(rng):
-    from oceananigans_tpu.advection import WENO as _W
-    grid = RectilinearGrid(size=(16, 16, 8), extent=(1, 1, 1))
-    u0 = 0.1 * rng.standard_normal((16, 16, 8))
-    v0 = 0.1 * rng.standard_normal((16, 16, 8))
-    c0 = rng.random((16, 16, 8))
-
-    def build(fused):
-        m = NonhydrostaticModel(grid=grid, advection=_W(5), tracers=("c",),
-                                fused_advection=fused)
-        m.set(u=u0, v=v0, c=c0)
-        return m
-
-    m1, m2 = build(False), build(True)
-    assert m2._fused_advection is not None
-    for _ in range(2):
-        m1.time_step(1e-3)
-        m2.time_step(1e-3)
-    for name in ("u", "v", "w", "c"):
-        a = np.asarray(m1.field(name).interior)
-        b = np.asarray(m2.field(name).interior)
-        assert np.allclose(a, b, atol=1e-12), (name, np.abs(a - b).max())

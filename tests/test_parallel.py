@@ -1,4 +1,4 @@
-"""Distributed/sharding tests on the 8-device virtual CPU mesh (the TPU
+"""Distributed/sharding tests on the 8-device virtual CPU mesh (the
 analogue of the reference's 4-rank MPI tests — SURVEY.md §4.5: halo views
 equal neighbor interiors; sharded run matches serial run)."""
 
@@ -12,7 +12,7 @@ from oceananigans_tpu import RectilinearGrid
 from oceananigans_tpu.advection import WENO
 from oceananigans_tpu.models import NonhydrostaticModel
 from oceananigans_tpu.parallel import (Distributed, DistributedFFTPoissonSolver,
-                                       Partition, make_halo_exchange)
+                                       Partition)
 from oceananigans_tpu.solvers.fft_poisson import FFTPoissonSolver
 
 pytestmark = pytest.mark.slow  # full-tier study/equivalence battery (see README testing tiers)
@@ -21,44 +21,6 @@ pytestmark = pytest.mark.slow  # full-tier study/equivalence battery (see README
 def need_devices(n):
     if len(jax.devices()) < n:
         pytest.skip(f"needs {n} devices")
-
-
-def test_shard_map_halo_exchange_matches_periodic_wrap():
-    need_devices(4)
-    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("x", "y"))
-    h = 2
-    nlx, nly = 8, 8       # local interior per shard
-    rng = np.random.default_rng(0)
-    # global interior field (16, 16, 4), laid out as per-shard padded blocks
-    glob = rng.normal(size=(16, 16, 4))
-    blocks = np.zeros((2, 2, nlx + 2 * h, nly + 2 * h, 4))
-    for i in range(2):
-        for j in range(2):
-            blocks[i, j, h:h + nlx, h:h + nly] = glob[
-                i * nlx:(i + 1) * nlx, j * nly:(j + 1) * nly]
-    # stack into the sharded global layout: (2*nlx+4h, 2*nly+4h, 4)
-    stacked = np.concatenate(
-        [np.concatenate([blocks[i, j] for j in range(2)], axis=1)
-         for i in range(2)], axis=0)
-    a = jnp.asarray(stacked)
-
-    ex = make_halo_exchange(mesh, (h, h, 0), (nlx, nly, 4))
-    out = np.asarray(ex(a))
-
-    # each shard's halos must equal the periodic-neighbor interior
-    for i in range(2):
-        for j in range(2):
-            blk = out[i * (nlx + 2 * h):(i + 1) * (nlx + 2 * h),
-                      j * (nly + 2 * h):(j + 1) * (nly + 2 * h)]
-            gi, gj = i * nlx, j * nly
-            # left halo in x = neighbor interior (wrapped)
-            expect = glob[(gi - h) % 16:(gi - h) % 16 + h,
-                          gj:gj + nly]
-            assert np.allclose(blk[0:h, h:h + nly], expect)
-            # corner: left-bottom corner = diagonal neighbor
-            expect_c = glob[(gi - h) % 16:(gi - h) % 16 + h,
-                            (gj - h) % 16:(gj - h) % 16 + h]
-            assert np.allclose(blk[0:h, 0:h], expect_c)
 
 
 def test_sharded_step_matches_serial():
@@ -70,11 +32,7 @@ def test_sharded_step_matches_serial():
     arch.validate_grid(grid)
 
     def build():
-        # fused_advection=False exercises the pure-GSPMD XLA advection path
-        # (the shard_map-wrapped megakernel is covered by
-        # test_sharded_fused_advection_matches_serial)
-        m = NonhydrostaticModel(grid=grid, advection=WENO(5),
-                                fused_advection=False)
+        m = NonhydrostaticModel(grid=grid, advection=WENO(5))
         rng = np.random.default_rng(1)
         m.set(u=0.1 * rng.standard_normal((10, 10, 10)),
               v=0.1 * rng.standard_normal((10, 10, 10)))
@@ -123,8 +81,7 @@ def test_sharded_immersed_step_matches_serial():
     arch.validate_grid(base)
 
     def build():
-        m = NonhydrostaticModel(grid=grid, advection=WENO(5),
-                                fused_advection=False)
+        m = NonhydrostaticModel(grid=grid, advection=WENO(5))
         rng = np.random.default_rng(7)
         m.set(u=0.1 * rng.standard_normal((10, 10, 10)),
               v=0.1 * rng.standard_normal((10, 10, 10)))
@@ -185,36 +142,6 @@ def test_distributed_pencil_bounded_and_stretched_z():
     dist2 = dist2 - dist2.mean()
     serial2 = serial2 - serial2.mean()
     assert np.abs(dist2 - serial2).max() < 1e-8
-
-
-def test_sharded_fused_advection_matches_serial():
-    """The shard_map-wrapped Pallas megakernel (per-shard blocks + ppermute
-    halo strips) matches the serial fused model."""
-    need_devices(8)
-    arch = Distributed(Partition(x=2, y=4))
-    grid = RectilinearGrid(size=(16, 16, 128), extent=(1, 1, 1))
-    rng = np.random.default_rng(3)
-    u0 = 0.1 * rng.standard_normal((16, 16, 128))
-    v0 = 0.1 * rng.standard_normal((16, 16, 128))
-
-    m_serial = NonhydrostaticModel(grid=grid, advection=WENO(5),
-                                   fused_advection=True, z_compact=True)
-    m_serial.set(u=u0, v=v0)
-    m_shard = NonhydrostaticModel(grid=grid, advection=WENO(5),
-                                  fused_advection=True, z_compact=True,
-                                  architecture=arch)
-    assert m_shard._fused_advection is not None
-    assert m_shard._fused_update is None      # sharded path uses plain RK3
-    m_shard.set(u=u0, v=v0)
-    m_shard.state = arch.shard(m_shard.state)
-    for _ in range(2):
-        m_serial.time_step(1e-3)
-        m_shard.time_step(1e-3)
-    for n in ("u", "v", "w"):
-        a = np.asarray(m_serial.state["fields"][n])
-        b = np.asarray(m_shard.state["fields"][n])
-        sl = m_serial.grid.interior_slices
-        assert np.abs(a[sl] - b[sl]).max() < 1e-9, n
 
 
 def test_sharded_hydrostatic_matches_serial():
@@ -374,7 +301,8 @@ def test_sharded_tripolar_hydrostatic_matches_serial():
                                          SplitExplicitFreeSurface)
 
     mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(2, 4), ("x", "y"))
-    grid = TripolarGrid(size=(32, 16, 4), z=(-1000.0, 0.0))
+    grid = TripolarGrid(size=(32, 16, 4), z=(-1000.0, 0.0),
+                         halo=(3, 8, 3))   # padded y extent 32 divides the mesh
 
     def build():
         m = HydrostaticFreeSurfaceModel(
@@ -564,8 +492,10 @@ def test_sharded_auxiliary_field_forcing_dependency():
     from oceananigans_tpu.models import NonhydrostaticModel
 
     arch = Distributed(Partition(x=2, y=4))
+    # padded y extent 16 + 2·8 = 32 divides the 4-way mesh axis
     grid = RectilinearGrid(size=(16, 16, 8), extent=(1.0, 1.0, 1.0),
-                           topology=("periodic", "periodic", "bounded"))
+                           topology=("periodic", "periodic", "bounded"),
+                           halo=(3, 8, 3))
     A = CenterField(grid).set(2.0)
     model = NonhydrostaticModel(
         grid=grid, advection=None, tracers=("c",),

@@ -24,7 +24,7 @@ def test_construction_and_step():
     model.time_step(1e-3)
     assert model.iteration == 1
     # field() refreshes halos; between steps only interiors are
-    # authoritative (fused kernels leave halo slots unwritten)
+    # authoritative
     assert np.all(np.isfinite(np.asarray(model.field("h").data)))
 
 

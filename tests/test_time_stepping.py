@@ -320,17 +320,3 @@ def test_cubed_sphere_closure_tuple_steps():
     m.set(b=lambda lam, phi, z: 1e-5 * z)
     m.time_step(300.0)
     assert np.isfinite(np.asarray(m.field("b").interior)).all()
-
-
-def test_fused_tendencies_explicit_request_raises_on_unsupported():
-    """fused_tendencies=True must not silently fall back (review finding):
-    unsupported configurations raise with the reason."""
-    from oceananigans_tpu.advection import WENOVectorInvariant
-    from oceananigans_tpu.models.hydrostatic import HydrostaticFreeSurfaceModel
-
-    grid = RectilinearGrid(size=(8, 8, 4), extent=(1e5, 1e5, 100.0),
-                           topology=("periodic", "periodic", "bounded"))
-    with pytest.raises(ValueError, match="z\\* moving coordinate"):
-        HydrostaticFreeSurfaceModel(
-            grid=grid, momentum_advection=WENOVectorInvariant(order=5),
-            fused_tendencies=True, vertical_coordinate="zstar")

@@ -1,9 +1,8 @@
 """z-compact (z-halo-free) fast-layout tests.
 
-The TPU fast path drops the z halos so the padded minor dimension is a whole
-number of 128-lane tiles (kernels/fused_advection.py docstring); z boundary
-conditions are applied inside the stencil reads (operators/shifts.py
-shift_zbc). These tests pin the layout to the padded reference semantics."""
+The z-compact layout drops the z halos; z boundary conditions are applied
+inside the stencil reads (operators/shifts.py shift_zbc). These tests pin
+the layout to the padded reference semantics."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,11 +19,10 @@ pytestmark = pytest.mark.slow  # full-tier study/equivalence battery (see README
 N = (16, 16, 128)
 
 
-def _build(zc, fused, u0, v0, b0):
+def _build(zc, u0, v0, b0):
     grid = RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0))
     m = NonhydrostaticModel(grid=grid, advection=WENO(5), tracers=("b",),
-                            buoyancy=BuoyancyTracer(), z_compact=zc,
-                            fused_advection=fused)
+                            buoyancy=BuoyancyTracer(), z_compact=zc)
     m.set(u=u0, v=v0, b=b0)
     return m
 
@@ -59,10 +57,10 @@ def test_z_compact_matches_padded(rng):
     v0 = 0.1 * rng.standard_normal(N)
     b0 = 0.01 * rng.standard_normal(N)
 
-    mp = _build(False, False, u0, v0, b0)
-    mz = _build(True, False, u0, v0, b0)
+    mp = _build(False, u0, v0, b0)
+    mz = _build(True, u0, v0, b0)
     assert mz._z_compact and not mp._z_compact
-    assert mz.grid.padded_shape[2] == 128          # two lane tiles exactly
+    assert mz.grid.padded_shape[2] == 128          # no z halo slots
 
     # tendencies agree BITWISE (the zbc stencil fixes reproduce the mirror
     # halos exactly); full steps agree to jit-reassociation noise
@@ -84,177 +82,3 @@ def test_z_compact_matches_padded(rng):
     aw = np.asarray(mp.field("w").interior)[:, :, :N[2]]
     bw = np.asarray(mz.field("w").interior)
     assert np.abs(aw - bw).max() < 5e-10
-
-
-def test_z_compact_fused_matches(rng):
-    u0 = 0.1 * rng.standard_normal(N)
-    v0 = 0.1 * rng.standard_normal(N)
-    b0 = 0.01 * rng.standard_normal(N)
-    mp = _build(False, False, u0, v0, b0)
-    mz = _build(True, True, u0, v0, b0)
-    assert mz._fused_advection is not None
-    for _ in range(2):
-        mp.time_step(1e-3)
-        mz.time_step(1e-3)
-    for n in ("u", "v", "b"):
-        a = np.asarray(mp.field(n).interior)
-        b = np.asarray(mz.field(n).interior)
-        assert np.abs(a - b).max() < 5e-10, n
-
-
-def test_fused_update_path_matches(rng):
-    """The fully-fused RK3 path (advection + stage update in one Pallas
-    call) matches the standard z-compact path."""
-    u0 = 0.1 * rng.standard_normal(N)
-    v0 = 0.1 * rng.standard_normal(N)
-    c0 = 0.01 * rng.standard_normal(N)
-    grid = RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0))
-
-    def build(want_fused_update):
-        m = NonhydrostaticModel(grid=grid, advection=WENO(5), tracers=("c",),
-                                z_compact=True, fused_advection=True)
-        if not want_fused_update:
-            m._fused_update = None
-            import jax
-            m._step = jax.jit(m._build_step())
-        m.set(u=u0, v=v0, c=c0)
-        return m
-
-    ma = build(True)
-    mb = build(False)
-    assert ma._fused_update is not None
-    for _ in range(3):
-        ma.time_step(1e-3)
-        mb.time_step(1e-3)
-    for n in ("u", "v", "w", "c"):
-        a = np.asarray(ma.field(n).interior)
-        b = np.asarray(mb.field(n).interior)
-        assert np.abs(a - b).max() < 5e-10, n
-
-
-def test_fused_projection_matches(rng):
-    """The fused Pallas projection (div-source + grad-correction kernels)
-    matches the XLA projection path exactly."""
-    import jax
-
-    u0 = 0.1 * rng.standard_normal(N)
-    v0 = 0.1 * rng.standard_normal(N)
-    c0 = 0.01 * rng.standard_normal(N)
-    grid = RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0))
-
-    def build(want_fused_proj):
-        m = NonhydrostaticModel(grid=grid, advection=WENO(5), tracers=("c",),
-                                z_compact=True, fused_advection=True,
-                                fuse_correction=False)
-        if not want_fused_proj:
-            m._fused_div = m._fused_correct = None
-            m._step = jax.jit(m._build_step())
-        m.set(u=u0, v=v0, c=c0)
-        return m
-
-    ma = build(True)
-    mb = build(False)
-    assert ma._fused_div is not None and ma._fused_correct is not None
-    for _ in range(3):
-        ma.time_step(1e-3)
-        mb.time_step(1e-3)
-    for n in ("u", "v", "w", "c"):
-        a = np.asarray(ma.field(n).interior)
-        b = np.asarray(mb.field(n).interior)
-        assert np.abs(a - b).max() < 5e-10, n
-    # w boundary face comes out pinned
-    assert np.asarray(ma.field("w").interior)[:, :, 0].max() == 0.0
-
-
-def test_halo_valid_outputs(rng):
-    """The fused RK3 path's kernels mirror edge strips into the periodic
-    halo slots: after a step, every prognostic array's x/y halos equal the
-    periodic image of its interior (no fill pass needed between kernels)."""
-    grid = RectilinearGrid(size=N, extent=(1.0, 1.0, 1.0))
-    m = NonhydrostaticModel(grid=grid, advection=WENO(5), tracers=("c",),
-                            z_compact=True, fused_advection=True)
-    assert m._fused_update is not None and m._fused_div is not None
-    m.set(u=0.1 * rng.standard_normal(N), v=0.1 * rng.standard_normal(N),
-          c=0.01 * rng.standard_normal(N))
-    m.time_step(1e-3)
-    Hx, Hy, _ = m.grid.H
-    nx, ny, _ = m.grid.N
-    for name in ("u", "v", "w", "c"):
-        a = np.asarray(m.state["fields"][name])
-        np.testing.assert_array_equal(a[:Hx], a[nx:nx + Hx],
-                                      err_msg=f"{name} left-x halo")
-        np.testing.assert_array_equal(a[Hx + nx:], a[Hx:2 * Hx],
-                                      err_msg=f"{name} right-x halo")
-        np.testing.assert_array_equal(a[:, :Hy], a[:, ny:ny + Hy],
-                                      err_msg=f"{name} left-y halo")
-        np.testing.assert_array_equal(a[:, Hy + ny:], a[:, Hy:2 * Hy],
-                                      err_msg=f"{name} right-y halo")
-
-
-def test_correction_fused_update_matches_separate_correct():
-    """The correction-fused update kernel (previous stage's pressure
-    correction applied in VMEM inside the advection megakernel,
-    kernels/fused_advection.py with_corr) must reproduce the separate
-    fused_correct chain to f32 roundoff."""
-    import jax.numpy as jnp
-
-    from oceananigans_tpu import RectilinearGrid
-    from oceananigans_tpu.advection import WENO
-    from oceananigans_tpu.models import NonhydrostaticModel
-
-    n = 128
-    rng = np.random.default_rng(0)
-    u0 = 0.1 * rng.standard_normal((32, 32, n)).astype(np.float32)
-    v0 = 0.1 * rng.standard_normal((32, 32, n)).astype(np.float32)
-    c0 = rng.random((32, 32, n), dtype=np.float32)
-    res = {}
-    for fc in (False, True):
-        grid = RectilinearGrid(size=(32, 32, n), extent=(1.0, 1.0, 1.0),
-                               topology=("periodic", "periodic", "bounded"),
-                               dtype=jnp.float32)
-        m = NonhydrostaticModel(grid=grid, advection=WENO(5), tracers=("c",),
-                                fuse_correction=fc)
-        assert m._fuse_correction == fc
-        m.set(u=u0, v=v0, c=c0)
-        for _ in range(3):
-            m.time_step(1e-3)
-        res[fc] = {k: np.asarray(m.field(k).interior)
-                   for k in ("u", "v", "w", "c")}
-    for k in ("u", "v", "w", "c"):
-        d = np.abs(res[True][k] - res[False][k]).max()
-        assert d < 5e-6, (k, d)
-
-
-def test_z_spectral_projection_handoff(monkeypatch):
-    """OCEANANIGANS_TPU_PZHAT=full: the divergence kernel emits b̂z (MXU DCT
-    in-kernel), the solver skips both z transforms, and the corr-fused
-    update kernel applies the iDCT on its VMEM p slab — must reproduce the
-    physical-handoff trajectory to f32 roundoff. (Measured slower on v5e —
-    default off — but the machinery is kept for hardware with MXU/VPU
-    overlap; this guards its correctness.)"""
-    import jax.numpy as jnp
-
-    from oceananigans_tpu import RectilinearGrid
-    from oceananigans_tpu.advection import WENO
-    from oceananigans_tpu.models import NonhydrostaticModel
-
-    n = 128
-    rng = np.random.default_rng(1)
-    u0 = 0.1 * rng.standard_normal((16, 16, n)).astype(np.float32)
-    v0 = 0.1 * rng.standard_normal((16, 16, n)).astype(np.float32)
-    res = {}
-    for pz in ("0", "full"):
-        monkeypatch.setenv("OCEANANIGANS_TPU_PZHAT", pz)
-        grid = RectilinearGrid(size=(16, 16, n), extent=(1.0, 1.0, 1.0),
-                               topology=("periodic", "periodic", "bounded"),
-                               dtype=jnp.float32)
-        m = NonhydrostaticModel(grid=grid, advection=WENO(5))
-        assert (m._pz_in and m._pz_out) == (pz == "full")
-        m.set(u=u0, v=v0)
-        for _ in range(3):
-            m.time_step(1e-3)
-        res[pz] = {k: np.asarray(m.field(k).interior)
-                   for k in ("u", "v", "w")}
-    for k in ("u", "v", "w"):
-        d = np.abs(res["full"][k] - res["0"][k]).max()
-        assert d < 5e-6, (k, d)
